@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path, ``search-fmin --engine minimizer`` on one
-device, through its CLI, at realistic index sizes, and checks every
-answer. Phases, one line or more each:
+Drives the port's main paths, ``search-fmin --engine minimizer`` and
+``kmer-mapper query``, on one device through the port's CLI, at
+realistic index sizes, and checks every answer. Phases, one line or
+more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels from the checkout's sources;
   3. kernel: the front-end kernel against its plain PyTorch version on
      the card, bit for bit, at the main path's shapes and a long-read
      shape; kernel and plain times (CUDA events);
-  4. per index (1 Mbp: fused slot rows; 4,641,652 bp, E. coli K-12
-     MG1655's length: narrow descriptor): a random genome cut into
-     unitigs with k-1 overlaps (bench.gen_dspss, k=31), sbwt-build and
-     build-fmin through the port's CLI, 16,384 mutated 128 bp reads plus
-     short and N-containing reads, search-fmin --device cuda, then
-     every window checked against the analytic DSPSS oracle and sampled
-     reads against the host oracle FinimizerIndex.search; locate time per
-     (8192, 128) batch (CUDA events) and the slow-path count.
+  4. per index (1 Mbp: fused slot rows, v1 locate; 4,641,652 bp, E. coli
+     K-12 MG1655's length: narrow descriptor, v2 locate): a random genome
+     cut into unitigs with k-1 overlaps (bench.gen_dspss, k=31),
+     sbwt-build and build-fmin through the port's CLI, 16,384 mutated
+     128 bp reads plus short and N-containing reads;
+     a. search-fmin --device cuda, the locate form it ran, every window
+        checked against the analytic DSPSS oracle and sampled reads
+        against the host oracle FinimizerIndex.search;
+     b. the four locate forms (v1, v2 and their occurrence-counting
+        forms) on one (8192, 128) CLI chunk: equal answers, cnt equal to
+        the found flag (each k-mer of a DSPSS occurs once), ms per batch
+        (CUDA events), the slow-path and run-head counts and capacities;
+     c. kmer-mapper build and query -r --device cuda on the same reads:
+        every window against the analytic oracle (unitig ids in the colex
+        order of their first k-mers), short/N and sampled reads against
+        query --host-exact, windows/s; then the multi-occurrence error
+        (one unitig stored twice) under both locate forms: exit code 1.
 
 Prints the kernels' JSON line, then, last, {"ok": true, "device": ...}.
 Any failure raises, and the exit code is then not 0. It imports nothing
@@ -180,14 +190,15 @@ def parse_output(path: str, n_lines: int):
     return out
 
 
-def analytic_expected(index, genome, cuts, starts, mutations):
+def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations):
     """Every window of every genome read, closed form (bench.py's DSPSS
     oracle): a k-mer occurs once, in the unitig whose cut range holds its
     genome start; windows covering a mutation are absent (forward, and
-    their reverse complement with probability ~1 - n/4^k)."""
+    their reverse complement with probability ~1 - n/4^k). The unitig
+    ids are those of the index whose unitig text is concat_u/ends_u."""
     B, n_win = starts.size, READ_LEN - K + 1
-    ends_u = np.asarray(index.unitigs.ends)
-    concat_u = np.asarray(index.unitigs.concat)
+    ends_u = np.asarray(ends_u)
+    concat_u = np.asarray(concat_u)
     ustart = np.concatenate([[0], ends_u[:-1]])
     pw = np.uint64(1) << (np.uint64(2) * np.arange(K, dtype=np.uint64))
     first_perm = concat_u[ustart[:, None] + np.arange(K)].astype(np.uint64) @ pw
@@ -220,101 +231,253 @@ def oracle_line(index, read: bytes) -> np.ndarray:
     return np.array(pairs, np.int64).reshape(-1, 2)
 
 
-def locate_timing(index, codes_both: np.ndarray) -> dict:
-    """The v1 locate of one (8192, 128) CLI chunk on the card: ms per
-    batch (CUDA events), windows/s, the slow-path count."""
+@contextlib.contextmanager
+def forms_picked(module):
+    """Records the locate form (True for v2) that module.pick_v2 returns
+    while the block runs."""
+    picked, pick = [], module.pick_v2
+
+    def spy(dmi):
+        picked.append(pick(dmi))
+        return picked[-1]
+
+    module.pick_v2 = spy
+    try:
+        yield picked
+    finally:
+        module.pick_v2 = pick
+
+
+def settle(dmi, codes, v2: bool, count: bool):
+    """One locate form at the capacities its caller's rule settles on
+    (the engine's; kmer-mapper's slow divisors for the counting forms).
+    Returns (locate, outputs, counters)."""
+    from finito_tpu_torch.query.minimizer_engine import (
+        make_minimizer_locate,
+        make_minimizer_locate_v2,
+    )
+    from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
+
+    B, L = codes.shape
+    BW = B * (L - K + 1)
+    K_slow, K_heads = initial_capacities(BW, v2, ((128 if v2 else 16) if count else None))
+    while True:
+        locate = (make_minimizer_locate_v2(dmi, K_slow, K_heads, count_occurrences=count) if v2
+                  else make_minimizer_locate(dmi, K_slow, count_occurrences=count))
+        out = locate(codes)
+        n_slow, n_heads = int(out[2]), (int(out[3]) if v2 else 0)
+        grown = grow_capacities(K_slow, K_heads, n_slow, n_heads, BW)
+        if grown is None:
+            return locate, out, {"n_slow": n_slow, "K_slow": K_slow,
+                                 **({"n_heads": n_heads, "K_heads": K_heads} if v2 else {})}
+        K_slow, K_heads = grown
+
+
+def locate_forms(index, codes_both: np.ndarray) -> dict:
+    """v1, v2 and both counting forms on one (8192, 128) CLI chunk on the
+    card: equal answers, ms per batch (CUDA events), counters."""
     import torch
 
     from finito_tpu_torch.query.engine import DeviceQueryEngine, _pad_codes
-    from finito_tpu_torch.query.minimizer_engine import make_minimizer_locate
-    from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
 
     torch.cuda.reset_peak_memory_stats()
     eng = DeviceQueryEngine(index, device=DEVICE)
     codes = eng._to_device(_pad_codes(codes_both))
     B, L = codes.shape
-    BW = B * (L - K + 1)
-    K_slow = initial_capacities(BW, False)[0]
-    while True:  # the engine's capacity rule, settled before timing
-        locate = make_minimizer_locate(eng._dmi, K_slow)
-        n_slow = int(locate(codes)[2])
-        grown = grow_capacities(K_slow, BW, n_slow, 0, BW)
-        if grown is None:
-            break
-        K_slow = grown[0]
-    ms = time_cuda(lambda: locate(codes), reps=20, warmup=3)
-    return {
-        "ms": ms, "windows": BW, "windows_per_s": BW / (ms / 1e3), "n_slow": n_slow,
-        "K_slow": K_slow, "slot_rows": eng._dmi.slot_rows is not None,
-        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-    }
+    res = {"windows": B * (L - K + 1), "slot_rows": eng._dmi.slot_rows is not None,
+           "engine_form": "v2" if eng.use_v2 else "v1"}
+    outs = {}
+    for name, v2, count in (("v1", False, False), ("v2", True, False),
+                            ("v1-count", False, True), ("v2-count", True, True)):
+        locate, out, counters = settle(eng._dmi, codes, v2, count)
+        outs[name] = out
+        res[name] = {"ms": time_cuda(lambda: locate(codes), reps=20, warmup=3), **counters}
+    uid, off = outs["v1"][:2]
+    for name in ("v2", "v1-count", "v2-count"):
+        if not (torch.equal(outs[name][0], uid) and torch.equal(outs[name][1], off)):
+            raise AssertionError(f"locate {name} disagrees with v1 on (uid, off)")
+    cnt1, cnt2 = outs["v1-count"][3], outs["v2-count"][4]
+    if not torch.equal(cnt1, cnt2):
+        raise AssertionError("the counting forms of v1 and v2 disagree on cnt")
+    if not torch.equal(cnt1, (uid >= 0).to(torch.int32)):
+        raise AssertionError("cnt differs from the found flag on a DSPSS (each k-mer occurs once)")
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return res
 
 
-def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
-    """One index size end to end; returns the front-end kernel launches
-    of its search-fmin run."""
-    from finito_tpu.index.index import FinimizerIndex
-    from finito_tpu.io.seqdb import decode_seq
-
-    from finito_tpu_torch import cli
-    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
-
-    genome, cuts, prefix = build_index(genome_len, seed, work)
-    rng = np.random.default_rng(seed + 1)
-    qpath, opath = os.path.join(work, "q.fna"), os.path.join(work, "out.txt")
-    starts, mutations, extra, reads = make_queries(rng, genome, n_reads, qpath)
-
+def run_counted(main, argv):
+    """One CLI call of a main path with the front-end kernel's launch
+    count set to 0 just before it and read just after. Returns (exit
+    code, stderr text, wall seconds, launches)."""
     import torch
+
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
 
     torch.cuda.synchronize()
     minimizer_windows.launches = 0
-    t0 = time.perf_counter()
     err = io.StringIO()
+    t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = cli.main(["search-fmin", "-o", opath, "-i", prefix, "-q", qpath,
-                       "--device", DEVICE])
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
     wall = time.perf_counter() - t0
-    launches = minimizer_windows.launches
+    return rc, err.getvalue(), wall, minimizer_windows.launches
+
+
+def search_phase(genome_len, prefix, qpath, work, check):
+    """search-fmin through the port's CLI, its output held to check.
+    Returns (its kernel launches, the loaded FinimizerIndex)."""
+    from finito_tpu.index.index import FinimizerIndex
+
+    from finito_tpu_torch import cli
+    from finito_tpu_torch.query import engine
+
+    opath = os.path.join(work, "out.txt")
+    with forms_picked(engine) as picked:
+        rc, logs, wall, launches = run_counted(
+            cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--device", DEVICE])
     if rc != 0:
-        raise RuntimeError(f"search-fmin failed:\n{err.getvalue()}")
-    logs = err.getvalue()
+        raise RuntimeError(f"search-fmin failed:\n{logs}")
+    form = "v2" if picked == [True] else "v1" if picked == [False] else f"? {picked}"
     us_io = re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)
     us_e2e = re.findall(r"us/query end-to-end: (\S+)", logs)
     n_q = re.findall(r"total number of queries: (\d+)", logs)
-    log(f"search-fmin {genome_len} bp: wall {wall} s, {n_q[-1]} queries, us/query "
+    log(f"search-fmin {genome_len} bp: locate {form}, wall {wall} s, {n_q[-1]} queries, us/query "
         f"{us_io[-1]} (excluding I/O), {us_e2e[-1]} (end to end), "
         f"front-end kernel launches {launches}")
     if launches <= 0:
         raise AssertionError("search-fmin did not launch the front-end kernel")
+    if form != ("v2" if genome_len == GENOMES[1] else "v1"):
+        raise AssertionError(f"search-fmin ran locate {form} at {genome_len} bp")
 
     index = FinimizerIndex.load(prefix)
-    lines = parse_output(opath, n_reads + len(extra))
-    want = analytic_expected(index, genome, cuts, starts, mutations)
-    got = np.stack(lines[:n_reads])
-    if got.shape != want.shape or not np.array_equal(got, want):
-        bad = int((got != want).any(axis=-1).sum()) if got.shape == want.shape else -1
-        raise AssertionError(f"{bad} windows disagree with the analytic DSPSS oracle")
-    log(f"check {genome_len} bp: all {want.shape[0] * want.shape[1]} windows of "
-        f"{n_reads} reads equal the analytic DSPSS oracle")
-    for r, line in zip(extra, lines[n_reads:]):
-        if not np.array_equal(line, oracle_line(index, r)):
-            raise AssertionError(f"short/N read disagrees with the host oracle: {r!r}")
+    check(f"search-fmin {genome_len} bp", opath, index.unitigs.concat, index.unitigs.ends,
+          lambda reads: [oracle_line(index, r) for r in reads])
+    return launches, index
+
+
+def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
+    """kmer-mapper build and query -r --device cuda through the port's
+    CLI, its output held to check; then the multi-occurrence error.
+    Returns the query's kernel launches."""
+    from finito_tpu.index.minimizer import MinimizerIndex
+    from finito_tpu.io.fastx import read_all_records
+
+    from finito_tpu_torch import cli, kmer_mapper
+
+    km, kout = os.path.join(work, "km.idx"), os.path.join(work, "km.txt")
+    t0 = time.perf_counter()
+    rc, logs, _, _ = run_counted(cli.main, ["kmer-mapper", "build", "-u", fna, "-k", str(K),
+                                            "-o", km])
+    if rc != 0:
+        raise RuntimeError(f"kmer-mapper build failed:\n{logs}")
+    log(f"kmer-mapper build {genome_len} bp: {time.perf_counter() - t0} s")
+    with forms_picked(kmer_mapper) as picked:
+        rc, logs, wall, launches = run_counted(
+            cli.main, ["kmer-mapper", "query", "-i", km, "-q", qpath, "-r", "-o", kout,
+                       "--device", DEVICE])
+    if rc != 0:
+        raise RuntimeError(f"kmer-mapper query failed:\n{logs}")
+    form = "v2" if picked == [True] else "v1" if picked == [False] else f"? {picked}"
+    log(f"kmer-mapper query -r {genome_len} bp: locate {form}, wall {wall} s, {n_win} windows, "
+        f"{n_win / wall} windows/s (both strands, incl. index load and output), "
+        f"front-end kernel launches {launches}")
+    if launches <= 0:
+        raise AssertionError("kmer-mapper query did not launch the front-end kernel")
+
+    mindex = MinimizerIndex.load(km)
+
+    def host_exact(reads):
+        sub, sub_out = os.path.join(work, "sub.fna"), os.path.join(work, "sub.txt")
+        with open(sub, "wb") as f:
+            f.write(b"".join(b">s%d\n%s\n" % (i, r) for i, r in enumerate(reads)))
+        rc, logs, _, _ = run_counted(cli.main, ["kmer-mapper", "query", "-i", km, "-q", sub,
+                                                "-r", "--host-exact", "-o", sub_out])
+        if rc != 0:
+            raise RuntimeError(f"kmer-mapper query --host-exact failed:\n{logs}")
+        return parse_output(sub_out, len(reads))
+
+    check(f"kmer-mapper {genome_len} bp", kout, mindex.concat, mindex.ends, host_exact,
+          "kmer-mapper query --host-exact")
+
+    # the error path: one unitig stored twice, a read taken from it
+    recs = read_all_records(fna)[:200]
+    longest = max(recs, key=lambda rec: len(rec[1]))
+    dup_fna, dup_idx = os.path.join(work, "dup.fna"), os.path.join(work, "dup.idx")
+    dq = os.path.join(work, "dup_q.fna")
+    with open(dup_fna, "wb") as f:
+        for i, (_h, seq) in enumerate(recs + [longest]):
+            f.write(b">%d\n%s\n" % (i, bytes(seq)))
+    with open(dq, "wb") as f:
+        f.write(b">d\n%s\n" % bytes(longest[1][:READ_LEN]))
+    rc, logs, _, _ = run_counted(cli.main, ["kmer-mapper", "build", "-u", dup_fna,
+                                            "-k", str(K), "-o", dup_idx])
+    if rc != 0:
+        raise RuntimeError(f"kmer-mapper build failed:\n{logs}")
+    for forced in ("0", "1"):
+        os.environ["FINITO_MINIMIZER_V2"] = forced
+        try:
+            rc, logs, _, _ = run_counted(cli.main, ["kmer-mapper", "query", "-i", dup_idx, "-q", dq,
+                                                    "-r", "--device", DEVICE])
+        finally:
+            del os.environ["FINITO_MINIMIZER_V2"]
+        if rc != 1 or "occurs in 2 unitigs" not in logs:
+            raise AssertionError(f"kmer-mapper error path (v2={forced}): exit {rc}, {logs!r}")
+    log(f"kmer-mapper error path {genome_len} bp: a duplicated unitig exits 1 with "
+        f"'{logs.strip().splitlines()[-1]}' under v1 and v2")
+    return launches
+
+
+def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
+    """One index size end to end; returns the front-end kernel launches
+    of its main-path runs (search-fmin and kmer-mapper query)."""
+    from finito_tpu.io.seqdb import decode_seq
+
+    genome, cuts, prefix = build_index(genome_len, seed, work)
+    rng = np.random.default_rng(seed + 1)
+    qpath = os.path.join(work, "q.fna")
+    starts, mutations, extra, reads = make_queries(rng, genome, n_reads, qpath)
     sample = rng.choice(n_reads, size=32, replace=False)
-    for i in sample:
-        if not np.array_equal(lines[i], oracle_line(index, decode_seq(reads[i]))):
-            raise AssertionError(f"read {i} disagrees with the host oracle")
-    log(f"check {genome_len} bp: {len(extra)} short/N reads and 32 sampled reads "
-        "equal the host oracle FinimizerIndex.search")
+
+    def check(what, opath, concat_u, ends_u, oracle, oracle_name="the host oracle "
+              "FinimizerIndex.search"):
+        """Every genome-read window against the analytic oracle; the short/N
+        reads and 32 sampled reads against oracle (a list of reads -> their
+        lines)."""
+        lines = parse_output(opath, n_reads + len(extra))
+        want = analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations)
+        got = np.stack(lines[:n_reads])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad = int((got != want).any(axis=-1).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"{what}: {bad} windows disagree with the analytic DSPSS oracle")
+        log(f"check {what}: all {want.shape[0] * want.shape[1]} windows of "
+            f"{n_reads} reads equal the analytic DSPSS oracle")
+        probe = list(extra) + [decode_seq(reads[i]) for i in sample]
+        for r, line, ref in zip(probe, lines[n_reads:] + [lines[i] for i in sample],
+                                oracle(probe)):
+            if not np.array_equal(line, ref):
+                raise AssertionError(f"{what}: read disagrees with {oracle_name}: {r!r}")
+        log(f"check {what}: {len(extra)} short/N reads and 32 sampled reads equal {oracle_name}")
+
+    launches, index = search_phase(genome_len, prefix, qpath, work, check)
+    launches += kmer_mapper_phase(genome_len, os.path.join(work, "unitigs.fna"), qpath, work,
+                                  check, 2 * n_reads * (READ_LEN - K + 1))
 
     chunk = reads[:4096]  # one CLI chunk: 4096 reads, both strands interleaved
     both = np.empty((2 * len(chunk), READ_LEN), np.uint8)
     both[0::2] = chunk
     both[1::2] = (3 - chunk)[:, ::-1]
-    t = locate_timing(index, both)
-    log(f"locate {genome_len} bp ({'fused slot rows' if t['slot_rows'] else 'narrow descriptor'}):"
-        f" {t['ms']} ms per (8192, 128) batch, {t['windows_per_s']} windows/s "
-        f"({t['windows']} windows), n_slow {t['n_slow']} (K_slow {t['K_slow']}), peak device memory "
-        f"{t['peak_mib']} MiB")
+    t = locate_forms(index, both)
+    log(f"locate forms {genome_len} bp ({'fused slot rows' if t['slot_rows'] else 'narrow descriptor'}, "
+        f"engine rule picks {t['engine_form']}), (8192, 128) batch, {t['windows']} windows: "
+        "v1 = v2 and v1-count = v2-count on (uid, off), cnt = found")
+    for name in ("v1", "v2", "v1-count", "v2-count"):
+        f = t[name]
+        log(f"  {name}: {f['ms']} ms per batch, {t['windows'] / (f['ms'] / 1e3)} windows/s, "
+            + ", ".join(f"{c} {f[c]}" for c in ("n_slow", "K_slow", "n_heads", "K_heads") if c in f))
+    log(f"  peak device memory {t['peak_mib']} MiB")
     return launches
 
 

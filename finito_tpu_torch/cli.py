@@ -1,13 +1,16 @@
-"""Command-line interface of the port: ``search-fmin`` on a torch device.
+"""Command-line interface of the port: ``search-fmin`` and ``kmer-mapper``
+on a torch device.
 
     python -m finito_tpu_torch.cli search-fmin -i <prefix> -q reads.fna -o out.txt [--device cuda]
+    python -m finito_tpu_torch.cli kmer-mapper query -i index -q reads.fna [-r] [--device cuda]
 
 search-fmin takes the flags of finito_tpu.cli's search-fmin plus
 ``--device`` (default cuda). The serving loop and every output byte come
 from the shared finito_tpu.cli._run_queries_streaming, which duck-types
 the engine, so the output file and ``<prefix>.stats`` are those of the
-JAX CLI by construction. The host-only commands (sbwt-build, build-fmin,
-unitigs, ...) pass through to finito_tpu.cli.COMMANDS.
+JAX CLI by construction. kmer-mapper is finito_tpu_torch.kmer_mapper.
+The host-only commands (sbwt-build, build-fmin, unitigs, ...) pass
+through to finito_tpu.cli.COMMANDS.
 """
 
 from __future__ import annotations
@@ -126,10 +129,16 @@ def search_fmin(argv: List[str]) -> int:
     return 0
 
 
-# kmer-mapper's device query is not ported: it stays on the JAX CLI
+def kmer_mapper(argv: List[str]) -> int:
+    from finito_tpu_torch import kmer_mapper as km
+
+    return km.main(argv)
+
+
 COMMANDS = {
-    **{name: fn for name, fn in host_cli.COMMANDS.items() if name != "kmer-mapper"},
+    **host_cli.COMMANDS,
     "search-fmin": search_fmin,
+    "kmer-mapper": kmer_mapper,
 }
 
 

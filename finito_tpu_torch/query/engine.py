@@ -2,8 +2,10 @@
 counterpart of finito_tpu/query/engine.py, minimizer mode only.
 
 DeviceQueryEngine uploads a FinimizerIndex's minimizer tables to one
-device and locates strand-interleaved read batches there with the v1
-locate (query.minimizer_engine) at every index size. The forward /
+device and locates strand-interleaved read batches there with the locate
+of query.minimizer_engine: the per-window v1 form below a 64 MB slot
+descriptor, the run-deduplicated v2 form from there up (the JAX
+engine's rule; FINITO_MINIMIZER_V2=0/1 forces either). The forward /
 reverse-complement merge and a run-length encoding of its output run on
 the device too (merge_rle), so the host reads back O(runs), not
 O(windows). The serving split merged_pairs_flat_begin / _end keeps the
@@ -14,6 +16,7 @@ is read in _end (the deferred verify).
 from __future__ import annotations
 
 import os
+import warnings
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -24,8 +27,22 @@ from finito_tpu.index.minimizer import MinimizerIndex
 from finito_tpu_torch.query.minimizer_engine import (
     DeviceMinimizerIndex,
     make_minimizer_locate,
+    make_minimizer_locate_v2,
 )
 from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
+
+# v2 from this descriptor size up: the JAX engine's threshold
+# (finito_tpu/query/engine.py), which is also its slot-row cap
+V2_MIN_DESC_BYTES = 64 << 20
+
+
+def pick_v2(dmi: DeviceMinimizerIndex) -> bool:
+    """Whether the locate takes the v2 form: FINITO_MINIMIZER_V2=0/1
+    forces it, else v2 from a V2_MIN_DESC_BYTES descriptor up."""
+    forced = os.environ.get("FINITO_MINIMIZER_V2")
+    if forced in ("0", "1"):
+        return forced == "1"
+    return dmi.desc.numel() * dmi.desc.element_size() >= V2_MIN_DESC_BYTES
 
 
 def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
@@ -109,46 +126,75 @@ def _pad_codes(codes: np.ndarray) -> np.ndarray:
 
 class DeviceQueryEngine:
     """Batched (unitig, offset) localization over a loaded FinimizerIndex
-    on one torch device (minimizer engine, v1 locate)."""
+    on one torch device (minimizer engine; ``use_v2`` names the locate
+    form it runs)."""
 
-    def __init__(self, index: FinimizerIndex, mode: str = "minimizer", device="cuda"):
+    def __init__(self, index: FinimizerIndex, mode: str = "minimizer", device="cuda",
+                 mindex_cache: str | None = None):
         """device: where the tables live and the locate runs ("cuda",
-        "cuda:1", "cpu")."""
+        "cuda:1", "cpu"). mindex_cache: optional path; the derived
+        MinimizerIndex is loaded from it when it matches this index and
+        serialized to it after a build."""
         if mode != "minimizer":
             raise NotImplementedError(f"engine mode {mode!r} is not ported (minimizer only)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.k = index.sbwt.get_k()
-        self._dmi = DeviceMinimizerIndex(MinimizerIndex.from_finimizer_index(index), self.device)
-        self._sizes = {}  # B*W -> last sufficient slow-path capacity K_slow
+        self._dmi = DeviceMinimizerIndex(self._minimizer_index(index, mindex_cache), self.device)
+        self.use_v2 = pick_v2(self._dmi)
+        self._sizes = {}  # (B, W) -> last sufficient (K_slow, K_heads)
+
+    def _minimizer_index(self, index: FinimizerIndex, cache: str | None) -> MinimizerIndex:
+        if cache and os.path.exists(cache):
+            mindex = MinimizerIndex.load(cache)
+            # a cache of another index would give wrong (uid, off): check
+            # what ties it to this one
+            if (
+                mindex.k == self.k
+                and mindex.concat.size == np.asarray(index.unitigs.concat).size
+                and np.array_equal(np.asarray(mindex.ends), np.asarray(index.unitigs.ends))
+            ):
+                return mindex
+            warnings.warn(f"minimizer cache {cache} does not match this index "
+                          "(k/text/ends differ); rebuilding")
+        mindex = MinimizerIndex.from_finimizer_index(index)
+        if cache:
+            mindex.serialize(cache)
+        return mindex
 
     # ---------------- batched core ----------------
 
+    def _dispatch(self, codes: torch.Tensor, K: int, KH: int):
+        if self.use_v2:
+            return make_minimizer_locate_v2(self._dmi, K, KH)(codes)
+        return make_minimizer_locate(self._dmi, K)(codes)
+
     def _locate_async(self, codes: torch.Tensor):
-        """Dispatch with the last-known-sufficient capacity and defer the
+        """Dispatch with the last-known-sufficient capacities and defer the
         overflow readback: returns (uid, off, verify). verify() reads the
-        slow-path counter and, on the rare overflow, re-runs at a larger
-        capacity and returns the corrected (uid, off), else None."""
+        counters and, on the rare overflow, re-runs at larger capacities
+        and returns the corrected (uid, off), else None."""
         B, L = codes.shape
-        BW = B * (L - self.k + 1)
-        K = self._sizes.get(BW) or initial_capacities(BW, False)[0]
+        W = L - self.k + 1
+        K, KH = self._sizes.get((B, W)) or initial_capacities(B * W, self.use_v2)
         k0 = int(os.environ.get("FINITO_MIN_K0", "0"))
         if k0 > 0:  # tests: force the overflow/verify path
-            K = k0
-            self._sizes.pop(BW, None)
-        first = make_minimizer_locate(self._dmi, K)(codes)
+            K, KH = k0, max(k0, 4)
+            self._sizes.pop((B, W), None)
+        first = self._dispatch(codes, K, KH)
 
-        def verify(K=K):
+        def verify(K=K, KH=KH):
             out = first
             while True:
-                # v1 has no run-head buffer: its capacity stands at B*W
-                grown = grow_capacities(K, BW, int(out[2]), 0, BW)
+                # one read of both counters (v1 has no head buffer)
+                n_slow, n_heads = torch.stack(out[2:4]).tolist() if self.use_v2 else (int(out[2]), 0)
+                grown = grow_capacities(K, KH, n_slow, n_heads, B * W)
                 if grown is None:
-                    self._sizes[BW] = K
+                    self._sizes[(B, W)] = (K, KH)
                     return None if out is first else (out[0], out[1])
-                K = grown[0]
-                out = make_minimizer_locate(self._dmi, K)(codes)
+                K, KH = grown
+                out = self._dispatch(codes, K, KH)
 
         return first[0], first[1], verify
 

@@ -1,5 +1,6 @@
 """Device query path of the minimizer seed-and-verify index, in PyTorch:
-counterpart of finito_tpu/query/minimizer_engine.py (its v1 locate).
+counterpart of finito_tpu/query/minimizer_engine.py (its v1 and v2
+locates and their occurrence-counting forms).
 
 Per (B, W) window batch, make_minimizer_locate runs
   1. the front end (ops.minimizer_front: the CUDA kernel on the card)
@@ -9,6 +10,7 @@ Per (B, W) window batch, make_minimizer_locate runs
   3. the packed-text compare of the single-occurrence candidate;
   4. compaction of the multi-occurrence windows (ops.streaming) and an
      exact candidate scan over their slots.
+make_minimizer_locate_v2 runs the same steps once per minimizer run.
 Output equals FinimizerIndex.search and the JAX engine: (uid, off) or
 (-1, -1) per window.
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from finito_tpu.index.minimizer import MinimizerIndex
-from finito_tpu_torch.ops.bits import U32, slot32, u32
+from finito_tpu_torch.ops.bits import U32, popcount32, slot32, u32
 from finito_tpu_torch.ops.minimizer_front import minimizer_windows, n_words
 from finito_tpu_torch.ops.streaming import compact_mask
 from finito_tpu_torch.query.minimizer_tables import (
@@ -213,9 +215,13 @@ def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
     """Returns locate: (B, L) uint8 codes on dmi.device -> ((B, W) int32
     uid, off, n_slow () int32 tensor). Results are valid only when
     n_slow <= K_slow; the caller re-runs with a larger bound otherwise
-    (the deferred-verify contract of query.engine)."""
-    if count_occurrences:
-        raise NotImplementedError("count_occurrences (kmer-mapper) is not ported yet")
+    (the deferred-verify contract of query.engine).
+
+    With count_occurrences a fourth output, (B, W) int32 cnt, is the
+    exact number of text occurrences of each window's k-mer (all
+    occurrences of a k-mer share its minimizer, hence its slot): the
+    candidate scan then runs to the slot end instead of stopping at the
+    first hit. kmer-mapper's "occurs in N unitigs" check reads it."""
     k = dmi.k
     masks = _word_masks(k)
 
@@ -265,24 +271,237 @@ def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
         s_qw = q_words.reshape(q_words.shape[0], -1)[:, safe]
         uid_s = torch.full((K_slow,), -1, dtype=torch.int32, device=codes.device)
         off_s = torch.full_like(uid_s, -1)
-        found_s = ~valid
+        cnt_s = torch.zeros_like(uid_s)
         # the one host read of the locate: the scan's trip count
         for t in range(int(s_len.max())):
             i = s_start + t
-            scan = ~found_s & (i < s_end)  # the first hit wins
+            scan = i < s_end
+            if not count_occurrences:
+                scan &= cnt_s == 0  # the first hit wins
             ci = torch.where(scan, i, 0).clamp(max=max(dmi.n_occ - 1, 0))
             match, uid_c, off_c = _check_candidate(dmi, ci, s_o, s_qw, masks)
             hit = scan & match
-            uid_s = torch.where(hit, uid_c, uid_s)
-            off_s = torch.where(hit, off_c, off_s)
-            found_s |= hit
+            first = hit & (cnt_s == 0)
+            uid_s = torch.where(first, uid_c, uid_s)
+            off_s = torch.where(first, off_c, off_s)
+            cnt_s += hit
 
         # drop-mode scatter: invalid lanes land in a sink slot
         BW = uid.numel()
         scat = torch.where(valid, flat_idx, BW).to(torch.int64)
-        uid = _scatter_drop(uid.reshape(-1), scat, uid_s)
-        off = _scatter_drop(off.reshape(-1), scat, off_s)
-        return uid.reshape(best_v.shape), off.reshape(best_v.shape), n_slow
+        uid = _scatter_drop(uid.reshape(-1), scat, uid_s).reshape(best_v.shape)
+        off = _scatter_drop(off.reshape(-1), scat, off_s).reshape(best_v.shape)
+        if not count_occurrences:
+            return uid, off, n_slow
+        # exact: a one-occurrence slot holds the k-mer's only possible
+        # occurrence (equal values share a slot)
+        cnt = _scatter_drop(found.to(torch.int32).reshape(-1), scat, cnt_s)
+        return uid, off, n_slow, cnt.reshape(best_v.shape)
+
+    return locate
+
+
+def _span_masks(k: int, R_run: int, nw_span: int) -> np.ndarray:
+    """(R_run, nw_span) static masks: the mismatch bits (even positions,
+    base j at bit 2j of the span) of bases [t, t + k) of a run's span,
+    i.e. of the run's t-th window."""
+    masks = np.zeros((R_run, nw_span), np.int64)
+    for t in range(R_run):
+        for j in range(t, t + k):
+            masks[t, (2 * j) >> 5] |= 1 << ((2 * j) & 31)
+    return masks
+
+
+def _span_mismatches(text, g0, span_read, masks):
+    """Per (lane, t) count of mismatching bases between the text span
+    starting at base g0 (int, may be negative) and the read span words
+    span_read (int64 words), under masks (R_run, NW_SPAN). Zero means
+    window t of the run equals the text at g0 + t.
+
+    g0 splits by a floor shift and a non-negative residue (int64), so a
+    span that starts before the text keeps its alignment; every word
+    index is clamped into the text, and the words a clamp substitutes
+    hold only bases outside the text, whose t the caller's validity
+    check rejects."""
+    g2 = g0.to(torch.int64) * 2
+    w0 = g2 >> 5
+    sh = g2 & 31
+    nz = sh > 0
+    inv = torch.where(nz, 32 - sh, 0)
+    last = text.numel() - 1
+    prev = u32(text[w0.clamp(0, last)])
+    cnt = None
+    for iw, rd in enumerate(span_read):
+        cur = u32(text[(w0 + iw + 1).clamp(0, last)])
+        x = _funnel(prev, cur, sh, nz, inv) ^ rd
+        mm = (x | (x >> 1)) & 0x55555555  # one bit per mismatching base
+        c = popcount32(mm[:, None] & masks[:, iw])
+        cnt = c if cnt is None else cnt + c
+        prev = cur
+    return cnt
+
+
+def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: int,
+                             count_occurrences: bool = False):
+    """Run-deduplicated locate, the counterpart of the JAX
+    make_minimizer_locate_v2: the big-table gathers and the text
+    verification run once per minimizer RUN, not once per window.
+
+    The minimizer position of sliding windows never decreases within a
+    read, so windows sharing one minimizer occurrence form runs of at
+    most R_run = k - m + 1 windows. Per (B, L) batch:
+      1. the front end (ops.minimizer_front: the CUDA kernel on the card);
+      2. run heads and their ordinals: one cumsum;
+      3. per head: the descriptor row, the single-occurrence payload row,
+         and the read span of k + R_run - 1 bases, packed;
+      4. the fast verify: the head's candidate text span against its read
+         span once; window t's verdict is zero mismatches under the
+         static mask of bases [t, t + k);
+      5. a (K_heads, 4 + NB) head table [len, uid, off0, head window,
+         match bitmap words], from which every window decodes its bit;
+      6. the slow path over heads of multi-occurrence slots (compacted
+         with ops.streaming), each candidate verified against the whole
+         span; a Python loop bounded by one host read of the largest
+         slot length;
+      7. the scatter of run results to their windows.
+    Returns (uid, off, n_slow, n_heads[, cnt]); results are valid only
+    when n_slow <= K_slow and n_heads <= K_heads. Runs on both index
+    branches (it reads only the descriptor rows, never slot_rows)."""
+    k = dmi.k
+    R_run = k - dmi.m + 1  # most windows sharing one minimizer
+    NW_SPAN = (2 * (k + R_run - 1) + 31) // 32 + 1
+    NB = (R_run + 31) // 32  # match-bitmap words per run
+    dev = dmi.device
+    masks = torch.from_numpy(_span_masks(k, R_run, NW_SPAN)).to(dev)
+    t_idx = torch.arange(R_run, device=dev)[None, :]
+
+    def locate(codes: torch.Tensor):
+        B, L = codes.shape
+        W = L - k + 1
+        BW = B * W
+        best_v, best_o, bad = minimizer_scan(codes, k, dmi.m)
+
+        # run heads: pm, the in-read position of the minimizer, never
+        # decreases along a read, so one cumsum gives every window its
+        # head ordinal and every head its slot in the head buffers
+        pm = best_o + torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+        head = torch.cat(
+            [torch.ones((B, 1), dtype=torch.bool, device=dev), pm[:, 1:] != pm[:, :-1]], dim=1
+        ).reshape(-1)
+        ord_flat = torch.cumsum(head.to(torch.int32), 0) - 1  # int64
+        n_heads = (ord_flat[-1] + 1).to(torch.int32)
+        # heads past K_heads go to the sink with the non-heads
+        head_pos = _scatter_drop(
+            torch.zeros(K_heads, dtype=torch.int64, device=dev),
+            torch.where(head & (ord_flat < K_heads), ord_flat, K_heads),
+            torch.arange(BW, device=dev),
+        )
+
+        # per-head gathers, the only touches of the big tables. No bad-
+        # masking: badness is per window and can differ inside a run; the
+        # slot is always in range, and ln is zeroed per window below.
+        h_v = best_v.reshape(-1)[head_pos]
+        d = dmi.desc[slot32(h_v) >> (32 - dmi.h)]  # (K_heads, 2)
+        h_start, h_ln = d[:, 0], d[:, 1]  # h_ln: exact slot length
+        row = dmi._occ_rows_safe[torch.where(h_ln == 1, h_start, 0)]
+        o_h_all = best_o.reshape(-1)[head_pos]
+
+        # packed read words (16 bases a word, least significant first) and
+        # each head's read span: the k + R_run - 1 bases from the head
+        # window's first base, shared by the fast verify and the slow path
+        NL = (L + 15) // 16 + NW_SPAN + 1
+        cp = torch.zeros((B, NL * 16), dtype=torch.int64, device=dev)
+        cp[:, :L] = codes.to(torch.int64) & 3
+        rw = (cp.reshape(B, NL, 16) << (2 * torch.arange(16, device=dev))).sum(2).reshape(-1)
+        hb = head_pos // W
+        hw0 = head_pos - hb * W
+        rbase = hb * NL + (hw0 >> 4)
+        rsh = 2 * (hw0 & 15)
+        rnz = rsh > 0
+        rinv = torch.where(rnz, 32 - rsh, 0)
+        span_read_h = []
+        prev = rw[rbase]
+        for iw in range(NW_SPAN):
+            cur = rw[rbase + iw + 1]
+            span_read_h.append(_funnel(prev, cur, rsh, rnz, rinv))
+            prev = cur
+
+        # run-level fast verify of the single-occurrence heads
+        g0_h = row[:, 0] - o_h_all
+        off0_h = row[:, 2] - o_h_all
+        cnt_h = _span_mismatches(dmi.text, g0_h, span_read_h, masks)
+        vt_h = (off0_h[:, None] + t_idx >= 0) & (g0_h[:, None] + t_idx + k <= row[:, 3:4])
+        match_h = (h_ln == 1)[:, None] & vt_h & (cnt_h == 0)  # (K_heads, R_run)
+        mb = []  # bitmap words in [0, 2^32): bit t of word t >> 5
+        for wdi in range(NB):
+            ts = slice(32 * wdi, min(32 * (wdi + 1), R_run))
+            sh = torch.arange(ts.stop - ts.start, device=dev)
+            mb.append((match_h[:, ts].to(torch.int64) << sh).sum(1))
+        head_table = torch.stack(
+            [h_ln.to(torch.int64), row[:, 1].to(torch.int64), off0_h.to(torch.int64),
+             head_pos, *mb], dim=1,
+        )  # (K_heads, 4 + NB): small, gathered once per window
+
+        # redistribute: each window decodes its own bit, no big-table touch
+        wrow = head_table[ord_flat.clamp(max=K_heads - 1)]
+        ln = torch.where(bad.reshape(-1), 0, wrow[:, 0])
+        t_w = (torch.arange(BW, device=dev) - wrow[:, 3]).clamp(0, R_run - 1)
+        mbits = wrow[:, 4]
+        for wdi in range(1, NB):
+            mbits = torch.where((t_w >> 5) == wdi, wrow[:, 4 + wdi], mbits)
+        found = (ln == 1) & (((mbits >> (t_w & 31)) & 1) == 1)
+        uid = torch.where(found, wrow[:, 1], -1).to(torch.int32)
+        off = torch.where(found, wrow[:, 2] + t_w, -1).to(torch.int32)
+
+        # run-level slow path: slow-ness belongs to the run (its
+        # minimizer's slot), so slow runs compact on the head domain and
+        # each candidate is verified against the run's whole span
+        valid_h = torch.arange(K_heads, device=dev) < n_heads
+        sh_idx, n_slow = compact_mask(valid_h & (h_ln >= 2), K_slow)
+        sh_valid = sh_idx >= 0
+        sj = torch.where(sh_valid, sh_idx, 0).to(torch.int64)
+        s_start = h_start[sj]
+        s_end = torch.clamp(s_start + h_ln[sj], max=dmi.n_occ)
+        f0 = head_pos[sj]  # the run's first window (flat)
+        nxt = head_pos[(sj + 1).clamp(max=K_heads - 1)]
+        r_len = (torch.where(sj + 1 < n_heads, nxt, BW) - f0).clamp(0, R_run)
+        o_h = o_h_all[sj]
+        span_read = [s[sj] for s in span_read_h]
+        live = sh_valid[:, None] & (t_idx < r_len[:, None])
+
+        uid_s = torch.full((K_slow, R_run), -1, dtype=torch.int32, device=dev)
+        off_s = torch.full_like(uid_s, -1)
+        cnt_s = torch.zeros_like(uid_s)
+        s_len = torch.where(sh_valid, s_end - s_start, 0)
+        # the one host read of the locate: the scan's trip count. Scanning
+        # past a window's first hit leaves uid/off at that hit and is what
+        # cnt needs, so the full trip count gives the JAX loop's answer
+        # in both modes, though JAX stops early when not counting.
+        for t in range(int(s_len.max())):
+            i = s_start + t
+            active = sh_valid & (i < s_end)
+            crow = dmi._occ_rows_safe[torch.where(active, i, 0).clamp(max=max(dmi.n_occ - 1, 0))]
+            g0 = crow[:, 0] - o_h
+            off0 = crow[:, 2] - o_h
+            cntm = _span_mismatches(dmi.text, g0, span_read, masks)
+            vt = (off0[:, None] + t_idx >= 0) & (g0[:, None] + t_idx + k <= crow[:, 3:4])
+            match = active[:, None] & live & vt & (cntm == 0)
+            first = match & (cnt_s == 0)
+            uid_s = torch.where(first, crow[:, 1:2], uid_s)
+            off_s = torch.where(first, off0[:, None] + t_idx, off_s).to(torch.int32)
+            cnt_s += match
+
+        # scatter run results to their windows; bad windows and lanes
+        # that are not live land in the sink
+        f_t = f0[:, None] + t_idx
+        bad_t = bad.reshape(-1)[f_t.clamp(max=BW - 1)]
+        sink = torch.where(live & ~bad_t, f_t, BW).reshape(-1)
+        uid = _scatter_drop(uid, sink, uid_s.reshape(-1)).reshape(B, W)
+        off = _scatter_drop(off, sink, off_s.reshape(-1)).reshape(B, W)
+        if not count_occurrences:
+            return uid, off, n_slow, n_heads
+        cnt = _scatter_drop(found.to(torch.int32), sink, cnt_s.reshape(-1))
+        return uid, off, n_slow, n_heads, cnt.reshape(B, W)
 
     return locate
 

@@ -1,7 +1,8 @@
 """The port's CLI (finito_tpu_torch/cli.py, --device cpu) against the JAX
 CLI's search-fmin --engine minimizer: byte-identical output and
 <prefix>.stats, and <prefix>stats.txt equal in every field but the
-timing. Also: the port runs with jax imports blocked."""
+timing. Also: the port, kmer-mapper included, runs with jax imports
+blocked."""
 
 from __future__ import annotations
 
@@ -126,14 +127,17 @@ def test_random_dspss_k31(tmp_path):
     assert out.count(b"\n") == len(reads)
 
 
-def test_unported_flags_fail(tmp_path):
+def test_unported_flags_fail(tmp_path, capsys):
     prefix = _build(tmp_path, PAPER_UNITIGS, 4)
     q = tmp_path / "q.fna"
     write_fasta(q, ["AAGTAA"])
     for extra in (["--mesh", "2,1"], ["--engine", "dense"]):
         assert port_cli.main(["search-fmin", "-i", prefix, "-q", str(q), "--device", "cpu",
                               *extra]) == 1
+    # kmer-mapper without a subcommand: its usage, exit code 1
+    capsys.readouterr()
     assert port_cli.main(["kmer-mapper"]) == 1
+    assert "kmer-mapper query" in capsys.readouterr().err
 
 
 BLOCKED = textwrap.dedent("""
@@ -147,6 +151,7 @@ BLOCKED = textwrap.dedent("""
 
     sys.meta_path.insert(0, _NoJax())
     import finito_tpu_torch.ops.minimizer_front, finito_tpu_torch.query.engine
+    import finito_tpu_torch.kmer_mapper
     from finito_tpu_torch import cli
     tmp, = sys.argv[1:]
     open(tmp + "/u.fna", "w").write(">\\nGTAAGTCT\\n>\\nAGGAAA\\n>\\nACAGG\\n>\\nGTAGG\\n>\\nAGGTA\\n")
@@ -156,6 +161,10 @@ BLOCKED = textwrap.dedent("""
     assert cli.main(["search-fmin", "-o", tmp + "/out.txt", "-i", tmp + "/idx",
                      "-q", tmp + "/q.fna", "--device", "cpu"]) == 0
     assert open(tmp + "/out.txt").read() == "(0,2) (-1,-1) (0,0)\\n"
+    assert cli.main(["kmer-mapper", "build", "-u", tmp + "/u.fna", "-k", "4", "-o", tmp + "/km"]) == 0
+    assert cli.main(["kmer-mapper", "query", "-i", tmp + "/km", "-q", tmp + "/q.fna",
+                     "-o", tmp + "/km.txt", "--device", "cpu"]) == 0
+    assert open(tmp + "/km.txt").read() == "(0,2) (-1,-1) (0,0)\\n"
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("JAX-FREE OK")
 """)

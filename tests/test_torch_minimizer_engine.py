@@ -1,8 +1,9 @@
-"""The port's minimizer tables and v1 locate
+"""The port's minimizer tables and locates
 (finito_tpu_torch/query/minimizer_{tables,engine}.py, ops/streaming.py)
 against the JAX package: host builders table by table, the device index
-from the JAX index's leaves, compact_mask, and (uid, off, n_slow) of the
-locate on the same reads. Every comparison is exact."""
+from the JAX index's leaves, compact_mask, and every output of the v1
+and v2 locates and their occurrence-counting forms on the same reads.
+Every comparison is exact."""
 
 from __future__ import annotations
 
@@ -209,30 +210,155 @@ def test_locate_forced_slow_overflow():
     assert n_slow > 2
 
 
-def test_count_occurrences_not_ported():
-    mi, _, _ = _mindex(13, 8, n=3)
-    with pytest.raises(NotImplementedError):
-        tme.make_minimizer_locate(tme.DeviceMinimizerIndex(mi), 16, count_occurrences=True)
+def _no_occurrence_index(rng):
+    """Every unitig shorter than k = 9: no occurrence at all."""
+    mi = MinimizerIndex.build(rng.integers(0, 4, 20).astype(np.uint8),
+                              np.array([5, 12, 20]), 9, m=4)
+    assert mi.occ_key.size == 0
+    return mi
 
 
 @pytest.mark.parametrize("narrow", [False, True])
 def test_locate_index_without_occurrences(narrow):
-    """Every unitig shorter than k: no occurrence at all. The JAX v1
-    locate cannot trace this (jnp.take from the empty occ_rows in
-    _check_candidate); the port answers every window absent, as the
-    host oracle does."""
+    """The JAX v1 locate cannot trace this (jnp.take from the empty
+    occ_rows in _check_candidate); the port answers every window absent,
+    as the host oracle does."""
     rng = np.random.default_rng(0)
-    k = 9
-    mi = MinimizerIndex.build(rng.integers(0, 4, 20).astype(np.uint8),
-                              np.array([5, 12, 20]), k, m=4)
-    assert mi.occ_key.size == 0
+    mi = _no_occurrence_index(rng)
     dmi = tme.DeviceMinimizerIndex(mi, "cpu")
     if narrow:
         dmi.slot_rows = None
     reads = rng.integers(0, 4, (4, 30)).astype(np.uint8)
     uid, off, n_slow = tme.make_minimizer_locate(dmi, 16)(torch.from_numpy(reads))
-    assert mi.lookup_kmer_host(reads[0, :k]) == (-1, -1)
+    assert mi.lookup_kmer_host(reads[0, :9]) == (-1, -1)
     assert (uid == -1).all() and (off == -1).all() and int(n_slow) == 0
+
+
+# ------------------------------------------------------------ locate v2
+
+
+def _v2_both(jdmi, tdmi, reads, K, KH, count=False):
+    """JAX and port v2 on the same reads; every output equal."""
+    want = jme.make_minimizer_locate_v2(jdmi, K, KH, count_occurrences=count)(reads)
+    got = tme.make_minimizer_locate_v2(tdmi, K, KH, count_occurrences=count)(
+        torch.from_numpy(reads))
+    assert len(got) == len(want) == (5 if count else 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    return [g.numpy() for g in got]
+
+
+def _indexes(mi, narrow):
+    jdmi = jme.DeviceMinimizerIndex(mi)
+    tdmi = tme.DeviceMinimizerIndex(mi, "cpu")
+    if narrow:
+        jdmi.slot_rows = None
+        tdmi.slot_rows = None
+    return jdmi, tdmi
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("k,m", [(31, 16), (63, 16), (18, 4), (9, 4), (95, 3)])
+def test_locate_v2_equals_jax(k, m, narrow):
+    """(31, 16): one bitmap word; (63, 16): R_run = 48, two bitmap words
+    with bit 31 set; (18, 4) and (9, 4): multi-occurrence slots, so slow
+    runs; (95, 3): spans that reach past the text's pad words. Both index
+    branches (v2 reads only the descriptor rows)."""
+    mi, permuted, rng = _mindex(400 + k, k, m=m, n=10)
+    reads = _reads(rng, permuted, 16, 2 * k + 30)
+    uid, _, n_slow, n_heads = _v2_both(*_indexes(mi, narrow), reads, 4096, 4096)
+    assert (uid >= 0).any()
+    assert 0 < n_heads < reads.shape[0] * (reads.shape[1] - k + 1)
+    if m <= 4:
+        assert n_slow > 0
+    # v2 answers what v1 answers
+    v1 = tme.make_minimizer_locate(_indexes(mi, narrow)[1], 4096)(torch.from_numpy(reads))
+    np.testing.assert_array_equal(uid, v1[0].numpy())
+
+
+def test_locate_v2_from_jax_leaves():
+    """The port's index made with from_numpy from the JAX index's leaves
+    runs v2 to the JAX answer."""
+    mi, permuted, rng = _mindex(77, 18, m=4, n=10)
+    jdmi = jme.DeviceMinimizerIndex(mi)
+    leaves, aux = jdmi.tree_flatten()
+    arrays = {name: None if leaf is None else np.asarray(leaf)
+              for name, leaf in zip(tme.LEAVES, leaves)}
+    tdmi = tme.DeviceMinimizerIndex.from_numpy(arrays, *aux, "cpu")
+    _v2_both(jdmi, tdmi, _reads(rng, permuted, 16, 60), 4096, 4096)
+
+
+def test_locate_v2_forced_overflow():
+    """K_heads and K_slow below their counts: every output, the counters
+    included, equals JAX's. n_heads is always the true count; n_slow is
+    the count among the first K_heads heads, so it is exact whenever the
+    heads fit, and overflow shows in one counter or the other."""
+    mi, permuted, rng = _mindex(12, 8, m=3, n=8, lo=12, hi=50)
+    reads = _reads(rng, permuted, 32, 40)
+    jdmi, tdmi = _indexes(mi, False)
+    _, _, n_slow, n_heads = _v2_both(jdmi, tdmi, reads, 4096, 4096)
+    assert n_slow > 2 and n_heads > 16
+    got = _v2_both(jdmi, tdmi, reads, 2, 4096)
+    assert (got[2], got[3]) == (n_slow, n_heads)
+    for K in (4096, 2):
+        got = _v2_both(jdmi, tdmi, reads, K, 16)
+        assert got[3] == n_heads and 0 < got[2] <= min(16, n_slow)
+
+
+# ------------------------------------------------- occurrence counting
+
+
+def _duplicated_unitig_index(seed, k, m):
+    """A DSPSS with one unitig stored twice, so its k-mers occur twice
+    (cnt = 2), and with small m so the slots also hold other k-mers."""
+    mi, permuted, rng = _mindex(seed, k, m=m, n=8, lo=k + 4, hi=k + 40)
+    dup = permuted + [permuted[1]]
+    concat = np.concatenate([encode_seq(u.encode()) for u in dup])
+    ends = np.cumsum([len(u) for u in dup])
+    return MinimizerIndex.build(concat, ends, k, m=m), dup, rng
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("k,m", [(9, 4), (31, 16)])
+def test_count_occurrences_equals_jax(k, m, narrow):
+    """Both locate forms with count_occurrences against JAX: uid, off and
+    the exact count, with cnt >= 2 on the duplicated unitig's k-mers."""
+    mi, dup, rng = _duplicated_unitig_index(500 + k, k, m)
+    reads = _reads(rng, dup, 16, k + 30)
+    reads[0, : k + 4] = encode_seq(dup[1][: k + 4].encode())
+    jdmi, tdmi = _indexes(mi, narrow)
+    want = jme.make_minimizer_locate(jdmi, 4096, count_occurrences=True)(reads)
+    got = tme.make_minimizer_locate(tdmi, 4096, count_occurrences=True)(torch.from_numpy(reads))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    cnt = got[3].numpy()
+    assert (cnt >= 2).any() and (cnt == 1).any()
+    v2 = _v2_both(jdmi, tdmi, reads, 4096, 4096, count=True)
+    np.testing.assert_array_equal(v2[4], cnt)
+    np.testing.assert_array_equal(v2[0], got[0].numpy())
+    # the count is the host's number of occurrences
+    for w in range(k + 4 - k + 1):
+        assert cnt[0, w] == len(mi.lookup_kmer_host_all(reads[0, w : w + k]))
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_v2_and_counting_without_occurrences(narrow):
+    """ROADMAP C4 for v2 and both counting forms: JAX cannot trace them
+    on an index with no occurrence; the port answers every window absent
+    with count 0, as the host oracle does."""
+    rng = np.random.default_rng(1)
+    mi = _no_occurrence_index(rng)
+    _, tdmi = _indexes(mi, narrow)
+    reads = torch.from_numpy(rng.integers(0, 4, (4, 30)).astype(np.uint8))
+    u1, o1, s1, c1 = tme.make_minimizer_locate(tdmi, 16, count_occurrences=True)(reads)
+    u2, o2, s2, h2, c2 = tme.make_minimizer_locate_v2(tdmi, 16, 256, count_occurrences=True)(reads)
+    u3, o3, s3, h3 = tme.make_minimizer_locate_v2(tdmi, 16, 256)(reads)
+    assert all(mi.lookup_kmer_host_all(reads[0, w : w + 9].numpy()) == [] for w in range(22))
+    for t in (u1, o1, u2, o2, u3, o3):
+        assert (t == -1).all()
+    assert (c1 == 0).all() and (c2 == 0).all()
+    assert int(s1) == int(s2) == int(s3) == 0 and int(h2) == int(h3) > 0
 
 
 @pytest.mark.cuda
@@ -254,3 +380,28 @@ def test_locate_on_card_equals_cpu(k, m, narrow):
         out.append(tme.make_minimizer_locate(dmi, 4096)(reads.to(device)))
     for a, b in zip(*out):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,narrow", [(9, 4, False), (31, 16, True), (63, 16, False)])
+def test_v2_and_counting_on_card_equal_cpu(k, m, narrow):
+    """v2 and both counting forms on the card equal the same calls on the
+    CPU, on an index with a duplicated unitig."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mi, dup, rng = _duplicated_unitig_index(600 + k, k, m)
+    reads = torch.from_numpy(_reads(rng, dup, 64, 2 * k + 40))
+    forms = (
+        lambda d: tme.make_minimizer_locate_v2(d, 4096, 8192),
+        lambda d: tme.make_minimizer_locate_v2(d, 4096, 8192, count_occurrences=True),
+        lambda d: tme.make_minimizer_locate(d, 4096, count_occurrences=True),
+    )
+    for form in forms:
+        out = []
+        for device in ("cpu", "cuda"):
+            dmi = tme.DeviceMinimizerIndex(mi, device)
+            if narrow:
+                dmi.slot_rows = None
+            out.append(form(dmi)(reads.to(device)))
+        for a, b in zip(*out):
+            assert torch.equal(a, b.cpu())
