@@ -9,13 +9,16 @@ realistic index sizes, and checks every answer. Phases, one line or
 more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles the CUDA kernels from the checkout's sources;
+  2. build: compiles the CUDA kernels (nvcc) and the host library (g++)
+     from the checkout's sources;
   3. kernel: the front-end kernel against its plain PyTorch version on
-     the card, bit for bit, at the main path's shapes and a long-read
-     shape; kernel and plain times (CUDA events);
+     the card, bit for bit, at the main path's shapes, a long-read shape,
+     edge shapes and one shape with B * L near 2^30; at the main path's
+     shape its device time (torch.profiler), the wrapper's time and the
+     plain version's (CUDA events), and the bound;
   4. per index (1 Mbp: fused slot rows, v1 locate; 4,641,652 bp, E. coli
      K-12 MG1655's length: narrow descriptor, v2 locate): a random genome
-     cut into unitigs with k-1 overlaps (bench.gen_dspss, k=31),
+     cut into unitigs with k-1 overlaps (gen_dspss below, k=31),
      sbwt-build and build-fmin through the port's CLI, 16,384 mutated
      128 bp reads plus short and N-containing reads;
      a. search-fmin --device cuda, the locate form it ran, every window
@@ -33,7 +36,8 @@ more each:
 
 Prints the kernels' JSON line, then, last, {"ok": true, "device": ...}.
 Any failure raises, and the exit code is then not 0. It imports nothing
-of JAX.
+of JAX, of the JAX package finito_tpu or of bench.py, and fails if any
+of them was imported.
 """
 
 from __future__ import annotations
@@ -58,8 +62,21 @@ READ_LEN = 128
 N_READS = 16384  # genome reads per index: 4 CLI chunks of 4096
 MUTATE = 0.005
 DEVICE = "cuda"
-KERNEL_CASES = [(8192, 128, 31, 16), (8192, 128, 21, 12), (8192, 128, 63, 28),
-                (8192, 128, 95, 16), (64, 4096, 31, 16)]
+KERNEL_CASES = [
+    (8192, 128, 31, 16), (8192, 128, 21, 12), (8192, 128, 63, 28), (8192, 128, 95, 16),
+    (64, 4096, 31, 16),
+    # edges: m = k, m = 1, k at the q-word boundaries, L = k (W = 1), B = 1
+    (8192, 128, 31, 31), (8192, 128, 31, 1), (8192, 128, 16, 8), (8192, 128, 17, 9),
+    (8192, 128, 32, 16), (8192, 128, 33, 17), (4096, 31, 31, 16), (1, 128, 31, 16),
+    (1, 31, 31, 31),
+]
+# B * L near 2^30, the flat window index's range; checked in row chunks
+LARGE_KERNEL_CASE = (4_190_000, 256, 31, 16)
+MAIN_SHAPE = (8192, 128, 31, 16)  # one CLI chunk: 4096 reads, both strands
+# top-level modules the port must never import
+FOREIGN = ("finito_tpu", "bench", "jax", "jaxlib")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
 
 def log(msg: str) -> None:
@@ -97,42 +114,137 @@ def padded_codes(rng, B: int, L: int) -> np.ndarray:
     return codes
 
 
+def device_ms(fn, kernel_name: str, reps: int = 50) -> float:
+    """Mean device time in milliseconds of the kernel named kernel_name
+    per launch, from torch.profiler's device events over reps calls of
+    fn after a warm-up; host time between launches is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key]
+    n = sum(e.count for e in hits)
+    us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total for e in hits)
+    # the profiler may drop an event at the edge of its window
+    if not reps - 5 <= n <= reps or us <= 0:
+        raise AssertionError(f"profiler saw {n} launches of {kernel_name} ({us} us) for {reps} calls")
+    return us / n / 1e3
+
+
+def front_bound_ms(B: int, L: int, k: int, m: int) -> tuple:
+    """(bound in ms, what binds) of the front end at one shape: each code
+    read once and each output written once (best_v, best_o 4 bytes,
+    bad 1, NW q-words 4 each per window) at the card's memory rate,
+    against the integer work (6 per m-mer: roll and hash; 3 per
+    candidate of the minimum; 3 per q-word; 2 for bad) at its peak rate."""
+    W, NW = L - k + 1, (2 * k + 31) // 32
+    t_bytes = (B * L + B * W * (9 + 4 * NW)) / HBM_BYTES_PER_S
+    ops = B * (L - m + 1) * 6 + B * W * (3 * (k - m) + 3 * NW + 2)
+    t_ops = ops / INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def compare_front(codes, k: int, m: int, chunk_rows: int) -> int:
+    """Largest absolute difference between the kernel's four outputs and
+    the plain version's, the plain version run on row chunks."""
+    import torch
+
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows, minimizer_windows_ref
+
+    got = minimizer_windows(codes, k, m)
+    torch.cuda.synchronize()
+    err = 0
+    for r0 in range(0, codes.shape[0], chunk_rows):
+        r1 = r0 + chunk_rows
+        want = minimizer_windows_ref(codes[r0:r1], k, m)
+        mine = (got[0][r0:r1], got[1][r0:r1], got[2][r0:r1], got[3][:, r0:r1])
+        for a, b in zip(mine, want):
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+    return err
+
+
 def kernel_phase(rng) -> dict:
-    """Front-end kernel vs its plain version on the card, bit for bit."""
+    """Front-end kernel vs its plain version on the card, bit for bit, at
+    every case; at the main path's shape its device time (profiler), the
+    wrapper's time (CUDA events), the plain version's and the bound."""
     import torch
 
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows, minimizer_windows_ref
 
     max_err = 0
-    for B, L, k, m in KERNEL_CASES:
-        codes = torch.from_numpy(padded_codes(rng, B, L)).cuda()
-        got = minimizer_windows(codes, k, m)
-        torch.cuda.synchronize()
-        want = minimizer_windows_ref(codes, k, m)
-        errs = [int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want)]
-        max_err = max(max_err, *errs)
-        log(f"kernel (B={B}, L={L}, k={k}, m={m}): max_abs_err {max(errs)} "
-            f"({'bit-exact' if max(errs) == 0 else 'MISMATCH'})")
-        if max(errs):
+    for B, L, k, m in KERNEL_CASES + [LARGE_KERNEL_CASE]:
+        if (B, L, k, m) == LARGE_KERNEL_CASE:
+            g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
+            codes = torch.randint(0, 4, (B, L), dtype=torch.uint8, device="cuda", generator=g)
+            n_pad = 100_000
+            codes[torch.from_numpy(rng.integers(0, B, n_pad)).cuda(),
+                  torch.from_numpy(rng.integers(0, L, n_pad)).cuda()] = 255
+            err = compare_front(codes, k, m, 1 << 16)
+            del codes
+            torch.cuda.empty_cache()
+        else:
+            err = compare_front(torch.from_numpy(padded_codes(rng, B, L)).cuda(), k, m, B)
+        max_err = max(max_err, err)
+        log(f"kernel (B={B}, L={L}, k={k}, m={m}): max_abs_err {err} "
+            f"({'bit-exact' if err == 0 else 'MISMATCH'})")
+        if err:
             raise AssertionError(f"front-end kernel disagrees with the plain version at {(B, L, k, m)}")
-    codes = torch.from_numpy(padded_codes(rng, 8192, 128)).cuda()
-    ms = time_cuda(lambda: minimizer_windows(codes, K, 16))
-    plain_ms = time_cuda(lambda: minimizer_windows_ref(codes, K, 16))
-    log(f"kernel time (8192, 128) k=31 m=16: kernel {ms} ms, plain {plain_ms} ms "
-        "(CUDA events, mean of 50 after warm-up)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    B, L, k, m = MAIN_SHAPE
+    codes = torch.from_numpy(padded_codes(rng, B, L)).cuda()
+    ms = time_cuda(lambda: minimizer_windows(codes, k, m))
+    dev_ms = device_ms(lambda: minimizer_windows(codes, k, m), "minimizer_front")
+    plain_ms = time_cuda(lambda: minimizer_windows_ref(codes, k, m))
+    ms2 = time_cuda(lambda: minimizer_windows(codes, k, m))
+    bound_ms, bound_by = front_bound_ms(B, L, k, m)
+    log(f"kernel time {MAIN_SHAPE}: device {dev_ms} ms per launch (torch.profiler, 50 launches); "
+        f"wrapper {ms} ms, {ms2} ms per call (CUDA events, mean of 50 calls after warm-up, "
+        f"before and after the plain version); plain {plain_ms} ms; bound {bound_ms} ms "
+        f"({bound_by}); device time is {bound_ms / dev_ms:.3f} of the bound")
+    return {"max_abs_err": max_err, "ms": ms, "ms_after": ms2, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / dev_ms}
+
+
+def draw_cuts(rng, genome_len: int, k: int, mean_unitig: int = 2000) -> np.ndarray:
+    """Unitig cut points; unitig i = genome[cuts[i] : cuts[i+1] + k - 1]."""
+    cuts = [0]
+    while cuts[-1] < genome_len - k:
+        cuts.append(min(genome_len - k + 1, cuts[-1] + int(rng.integers(mean_unitig // 2, mean_unitig * 2))))
+    return np.asarray(cuts, np.int64)
+
+
+def gen_dspss(rng, genome_len: int, k: int, mean_unitig: int = 2000):
+    """Random genome cut into unitigs overlapping by k-1 (k-mer set
+    preserved, each k-mer occurs exactly once). Returns (genome, unitigs
+    as bytes, cuts)."""
+    from finito_tpu_torch.io.seqdb import decode_seq
+    from finito_tpu_torch.sbwt import keys as kw
+
+    while True:
+        genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+        # k-mer distinctness (astronomically likely for k=31): native
+        # rolling pack + radix sort, one pass each
+        wk = kw.sort_keys(kw.pack_windows(genome, k))
+        if not np.any(kw.eq_adjacent(wk)):
+            break
+    cuts = draw_cuts(rng, genome_len, k, mean_unitig)
+    unitigs = [decode_seq(genome[a : b + k - 1]) for a, b in zip(cuts[:-1], cuts[1:])]
+    return genome, unitigs, cuts
 
 
 def build_index(genome_len: int, seed: int, work: str):
     """DSPSS genome -> unitig FASTA -> sbwt-build + build-fmin through the
     port's CLI. Returns (genome, cuts, index prefix)."""
-    from bench import gen_dspss
-
     from finito_tpu_torch import cli
 
     t0 = time.perf_counter()
-    genome, unitigs, cuts = gen_dspss(np.random.default_rng(seed), genome_len, K,
-                                      return_cuts=True)
+    genome, unitigs, cuts = gen_dspss(np.random.default_rng(seed), genome_len, K)
     fna = os.path.join(work, "unitigs.fna")
     with open(fna, "wb") as f:
         for i, u in enumerate(unitigs):
@@ -149,10 +261,10 @@ def build_index(genome_len: int, seed: int, work: str):
 
 
 def make_queries(rng, genome: np.ndarray, n_reads: int, path: str):
-    """Reads sampled from the genome with point mutations (as bench.py),
+    """Reads sampled from the genome with point mutations,
     then short and N-containing reads. Returns (starts, mutations, extra
     reads as bytes)."""
-    from finito_tpu.io.seqdb import decode_seq
+    from finito_tpu_torch.io.seqdb import decode_seq
 
     starts = rng.integers(0, genome.size - READ_LEN, size=n_reads)
     reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]].copy()
@@ -191,8 +303,8 @@ def parse_output(path: str, n_lines: int):
 
 
 def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations):
-    """Every window of every genome read, closed form (bench.py's DSPSS
-    oracle): a k-mer occurs once, in the unitig whose cut range holds its
+    """Every window of every genome read, closed form (the DSPSS oracle):
+    a k-mer occurs once, in the unitig whose cut range holds its
     genome start; windows covering a mutation are absent (forward, and
     their reverse complement with probability ~1 - n/4^k). The unitig
     ids are those of the index whose unitig text is concat_u/ends_u."""
@@ -222,7 +334,7 @@ def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations):
 def oracle_line(index, read: bytes) -> np.ndarray:
     """The merged output line of one read under the host oracle
     (reference merge rule, search_fmin.hh:62-71)."""
-    from finito_tpu.io.fastx import reverse_complement
+    from finito_tpu_torch.io.fastx import reverse_complement
 
     with contextlib.redirect_stderr(io.StringIO()):  # it reports non-ACGT reads
         fwd = index.search(read).local_offsets
@@ -329,9 +441,8 @@ def run_counted(main, argv):
 def search_phase(genome_len, prefix, qpath, work, check):
     """search-fmin through the port's CLI, its output held to check.
     Returns (its kernel launches, the loaded FinimizerIndex)."""
-    from finito_tpu.index.index import FinimizerIndex
-
     from finito_tpu_torch import cli
+    from finito_tpu_torch.index.index import FinimizerIndex
     from finito_tpu_torch.query import engine
 
     opath = os.path.join(work, "out.txt")
@@ -362,10 +473,9 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
     """kmer-mapper build and query -r --device cuda through the port's
     CLI, its output held to check; then the multi-occurrence error.
     Returns the query's kernel launches."""
-    from finito_tpu.index.minimizer import MinimizerIndex
-    from finito_tpu.io.fastx import read_all_records
-
     from finito_tpu_torch import cli, kmer_mapper
+    from finito_tpu_torch.index.minimizer import MinimizerIndex
+    from finito_tpu_torch.io.fastx import read_all_records
 
     km, kout = os.path.join(work, "km.idx"), os.path.join(work, "km.txt")
     t0 = time.perf_counter()
@@ -433,7 +543,7 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
 def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
     """One index size end to end; returns the front-end kernel launches
     of its main-path runs (search-fmin and kmer-mapper query)."""
-    from finito_tpu.io.seqdb import decode_seq
+    from finito_tpu_torch.io.seqdb import decode_seq
 
     genome, cuts, prefix = build_index(genome_len, seed, work)
     rng = np.random.default_rng(seed + 1)
@@ -484,6 +594,8 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0, help="seed of genomes and reads")
+    p.add_argument("--kernel-only", action="store_true",
+                   help="stop after the kernel phase (its check and times); prints no ok line")
     args = p.parse_args()
 
     import torch
@@ -493,6 +605,7 @@ def main() -> int:
     card = gpu_name_and_power()
     log(f"device: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} visible")
+    from finito_tpu_torch import native
     from finito_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -502,8 +615,17 @@ def main() -> int:
     for line in _build.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line:
             log(f"build: {line.strip()}")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the host library (g++, finito_tpu_torch/native) did not build or load")
+    gxx = native.build_info.get("seconds")
+    log(f"build: host library {time.perf_counter() - t0} s "
+        f"({'g++ ' + str(gxx) + ' s' if gxx is not None else 'cached'}, {native.build_info['path']})")
 
     kern = kernel_phase(np.random.default_rng(args.seed))
+    if args.kernel_only:
+        log(json.dumps({"kernel_only": kern, "card": card}))
+        return 0
     launches = 0
     scratch = os.path.join(HERE, "build")
     os.makedirs(scratch, exist_ok=True)
@@ -511,14 +633,17 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_") as work:
             launches += index_phase(genome_len, args.seed, N_READS, work)
 
-    if any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules):
-        raise AssertionError("the port imported jax")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    if foreign:
+        raise AssertionError(f"the run imported {foreign[:5]}: the port must import none of {FOREIGN}")
     log(json.dumps({"kernels": [{
         "name": "minimizer_windows", "route": "cuda",
         "source": "finito_tpu_torch/csrc/minimizer_front.cu",
         "replaces": "finito_tpu/ops/pallas_min.py:124",
         "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+        "ms": kern["ms"], "device_ms": kern["device_ms"], "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        "share_of_bound": kern["share_of_bound"], "library_ms": None,
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

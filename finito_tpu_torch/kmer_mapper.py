@@ -1,32 +1,35 @@
-"""kmer-mapper on a torch device: counterpart of finito_tpu/kmer_mapper.py.
+"""kmer-mapper on a torch device: counterpart of finito_tpu/kmer_mapper.py,
+the equivalent of the reference's Rust implementation
+(ref_implementation/src/main.rs:133-305).
 
     python -m finito_tpu_torch.kmer_mapper build -u unitigs.fna -k K [-m M] -o index
     python -m finito_tpu_torch.kmer_mapper query -i index -q reads.fna [-r] [--host-exact] [--device cuda]
     python -m finito_tpu_torch.kmer_mapper extract-index-unitigs -i index -o out.fna
 
-build, extract-index-unitigs and the index loader (a KMIDXv01 file is
-imported) are jax-free host code, shared with finito_tpu.kmer_mapper;
-so is query's --host-exact scan. The default query runs the port's
-minimizer locate with count_occurrences on ``--device`` (default cuda;
-cpu runs the plain PyTorch versions): one batch per strand, the v1/v2
-rule of query.engine, the host fwd/RC merge that skips self-RC k-mers,
-and the reference's "occurs in N unitigs" error, exit code 1, whenever
-a window's total occurrence count exceeds 1. Output bytes equal the JAX
-CLI's.
+build permutes the unitigs by the colexicographic order of their first
+k-mer (main.rs:42-61) and writes an FTMIDX02 index (index/minimizer.py);
+-m above 16 is clamped (query answers are independent of m). query and
+extract-index-unitigs also import a Rust KMIDXv01 file one-way
+(io/kmidx.py). The default query runs the port's minimizer locate with
+count_occurrences on ``--device`` (default cuda; cpu runs the plain
+PyTorch versions): one batch per strand, the v1/v2 rule of query.engine,
+the host fwd/RC merge that skips self-RC k-mers, and the reference's
+"occurs in N unitigs" error, exit code 1, whenever a window's total
+occurrence count exceeds 1. --host-exact is the per-window host scan with
+full multi-occurrence detection; it touches no device.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from finito_tpu import kmer_mapper as host_km
-from finito_tpu.index.minimizer import MinimizerIndex
-from finito_tpu.kmer_mapper import _load_index, build, extract_index_unitigs
+from finito_tpu_torch.index.minimizer import MinimizerIndex, default_m
 from finito_tpu_torch.query.engine import pick_v2
 from finito_tpu_torch.query.minimizer_engine import (
     DeviceMinimizerIndex,
@@ -36,13 +39,60 @@ from finito_tpu_torch.query.minimizer_engine import (
 from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
 
 
+def _colex_key(kmer: bytes) -> bytes:
+    return kmer[::-1]
+
+
+def permute_by_first_kmer(records: List[tuple], k: int) -> List[tuple]:
+    """Sort records by colex order of their first k-mer (main.rs:42-61)."""
+    return sorted(records, key=lambda rec: _colex_key(bytes(rec[1][:k])))
+
+
+def build(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="kmer-mapper build", description="Mapping k-mers to unitigs")
+    p.add_argument("-u", "--unitigs", required=True, help="Input FASTA or FASTQ file, possibly gzipped")
+    p.add_argument("-t", "--nthreads", type=int, default=1, help="Number of host build threads (native sort kernels)")
+    p.add_argument("-o", "--outfile", required=True, help="Output index file")
+    p.add_argument("-k", type=int, required=True, help="k-mer length")
+    p.add_argument("-m", type=int, default=None, help="minimizer length (default: auto; values above 16 are clamped)")
+    args = p.parse_args(argv)
+    if args.nthreads > 1:
+        os.environ.setdefault("FINITO_THREADS", str(args.nthreads))
+
+    from finito_tpu_torch.io.fastx import read_all_records
+    from finito_tpu_torch.io.seqdb import encode_seq
+
+    records = read_all_records(args.unitigs)
+    sys.stderr.write(f"Read {len(records)} unitigs\n")
+    sys.stderr.write("Sorting unitigs by first k-mer\n")
+    records = permute_by_first_kmer(records, args.k)
+
+    seqs = [encode_seq(bytes(s)) for _h, s in records]
+    concat = np.concatenate(seqs) if seqs else np.zeros(0, np.uint8)
+    ends = np.cumsum([s.size for s in seqs]).astype(np.int64)
+
+    m = args.m
+    if m is not None and m > 16:
+        sys.stderr.write(f"m={m} clamped to 16 (query answers are independent of m)\n")
+        m = 16
+    if m is None:
+        m = default_m(args.k)
+    sys.stderr.write(f"k = {args.k}, m = {m}\n")
+
+    index = MinimizerIndex.build(concat, ends, args.k, m=m)
+    index.headers = [bytes(h) for h, _s in records]
+    sys.stderr.write(f"Saving index to {args.outfile}\n")
+    index.serialize(args.outfile)
+    return 0
+
+
 def _device_locate(index: MinimizerIndex, reads: List[bytes], rc: bool, device="cuda"):
     """Per-read lists of (u, p) with the fwd/RC merge, located on device.
     Exits with the reference's 'occurs in N unitigs' error whenever a
     k-mer's total occurrence count exceeds 1, forward-only duplicates
     included and with or without rc (main.rs:89-92)."""
-    from finito_tpu.io.seqdb import decode_seq, encode_seq
-    from finito_tpu.utils import tune_host_allocator
+    from finito_tpu_torch.io.seqdb import decode_seq, encode_seq
+    from finito_tpu_torch.utils import tune_host_allocator
 
     tune_host_allocator()
     device = torch.device(device)
@@ -129,25 +179,83 @@ def query(argv: List[str]) -> int:
                    help="torch device of the query (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
     args = p.parse_args(argv)
-    if args.host_exact:  # the shared host scan; it never touches a device
-        host_argv = ["-i", args.index, "-q", args.query, "--host-exact"]
-        host_argv += ["-r"] if args.reverse_complements else []
-        host_argv += ["-o", args.outfile] if args.outfile else []
-        return host_km.query(host_argv)
 
-    from finito_tpu.io.fastx import SequenceReader
+    from finito_tpu_torch.io.fastx import SequenceReader, reverse_complement
+    from finito_tpu_torch.io.seqdb import encode_seq
 
     index = _load_index(args.index)
+    k = index.k
     out = open(args.outfile, "w") if args.outfile else sys.stdout
+
+    def emit(line):
+        out.write(" ".join(f"({u},{p})" for u, p in line) + "\n")
+
     try:
-        with SequenceReader(args.query) as reader:
-            reads = [bytes(s) for _h, s in reader]
-        for line in _device_locate(index, reads, args.reverse_complements, args.device):
-            out.write(" ".join(f"({u},{p})" for u, p in line) + "\n")
+        if args.host_exact:
+            with SequenceReader(args.query) as reader:
+                for _h, read in reader:
+                    read = bytes(read)
+                    line = []
+                    for w in range(max(0, len(read) - k + 1)):
+                        kmer = read[w : w + k]
+                        occs = index.lookup_kmer_host_all(encode_seq(kmer))
+                        if args.reverse_complements:
+                            rck = reverse_complement(kmer)
+                            if rck != kmer:
+                                occs = occs + index.lookup_kmer_host_all(encode_seq(rck))
+                        if len(occs) > 1:
+                            sys.stderr.write(
+                                f"Error: k-mer {kmer.decode()} occurs in {len(occs)} unitigs\n"
+                            )
+                            raise SystemExit(1)
+                        line.append(occs[0] if occs else (-1, -1))
+                    emit(line)
+        else:
+            with SequenceReader(args.query) as reader:
+                reads = [bytes(s) for _h, s in reader]
+            for line in _device_locate(index, reads, args.reverse_complements, args.device):
+                emit(line)
     finally:
         if args.outfile:
             out.close()
     return 0
+
+
+def extract_index_unitigs(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="kmer-mapper extract-index-unitigs")
+    p.add_argument("-i", "--index", required=True, help="Index file")
+    p.add_argument("-o", "--outfile", required=True, help="Output fasta file")
+    args = p.parse_args(argv)
+
+    from finito_tpu_torch.io.fastx import SequenceWriter
+    from finito_tpu_torch.io.seqdb import decode_seq
+
+    index = _load_index(args.index)
+    with SequenceWriter(args.outfile) as w:
+        start = 0
+        for uid, e in enumerate(index.ends):
+            seq = decode_seq(index.concat[start : int(e)])
+            header = (
+                index.headers[uid]
+                if index.headers is not None and uid < len(index.headers)
+                else f"unitig_{uid}".encode()
+            )
+            w.write_record(header, seq)
+            start = int(e)
+    return 0
+
+
+def _load_index(path: str):
+    """Load a finito FTMIDX index, or import a Rust KMIDXv01 file
+    (one-way; see io/kmidx.py for the verification status)."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic == b"KMIDXv01":
+        from finito_tpu_torch.io.kmidx import import_kmidx
+
+        sys.stderr.write("Importing Rust KMIDXv01 index (rebuilding hash-slot table)\n")
+        return import_kmidx(path)
+    return MinimizerIndex.load(path)
 
 
 COMMANDS = {

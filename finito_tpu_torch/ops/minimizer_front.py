@@ -57,11 +57,18 @@ def minimizer_windows_ref(codes: torch.Tensor, k: int, m: int):
     return to_i32(best_v), best_o, bad, to_i32(q)
 
 
+# the kernel's launch shape: threads per block, window groups per thread
+THREADS = 256
+GROUPS_PER_THREAD = 2
+_kernel = None  # the ctypes function, loaded on the first launch
+
+
 def minimizer_windows(codes: torch.Tensor, k: int, m: int):
     """The front end: plain version for a CPU tensor, the CUDA kernel for
-    a CUDA tensor (uint8, contiguous). Same outputs as
-    minimizer_windows_ref. ``minimizer_windows.launches`` counts kernel
-    launches."""
+    a CUDA tensor (uint8, contiguous, B * L < 2^31). Same
+    outputs as minimizer_windows_ref; on the card the four are views of
+    one buffer. ``minimizer_windows.launches`` counts kernel launches."""
+    global _kernel
     if codes.device.type == "cpu":
         return minimizer_windows_ref(codes, k, m)
     if codes.device.type != "cuda":
@@ -74,21 +81,29 @@ def minimizer_windows(codes: torch.Tensor, k: int, m: int):
     W = L - k + 1
     if W < 1:
         raise ValueError(f"minimizer_windows: L={L} shorter than k={k}")
-    best_v = torch.empty((B, W), dtype=torch.int32, device=codes.device)
-    best_o = torch.empty((B, W), dtype=torch.int32, device=codes.device)
-    bad = torch.empty((B, W), dtype=torch.bool, device=codes.device)
-    q = torch.empty((n_words(k), B, W), dtype=torch.int32, device=codes.device)
+    if B * L >= 1 << 31:
+        raise ValueError(f"minimizer_windows: B * L = {B * L} reaches 2^31 (32-bit indexing)")
+    BW, nw = B * W, n_words(k)
+    buf = torch.empty(BW * (4 * (2 + nw) + 1), dtype=torch.uint8, device=codes.device)
+    words = buf[: 4 * BW * (2 + nw)].view(torch.int32)
+    best_v = words[:BW].view(B, W)
+    best_o = words[BW : 2 * BW].view(B, W)
+    q = words[2 * BW :].view(nw, B, W)
+    bad = buf[4 * BW * (2 + nw) :].view(torch.bool).view(B, W)
     if B == 0:
         return best_v, best_o, bad, q
-    from finito_tpu_torch.ops import _build
+    if _kernel is None:
+        from finito_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fin_minimizer_windows(
-            codes.data_ptr(), B, L, k, m, best_v.data_ptr(), best_o.data_ptr(),
-            bad.data_ptr(), q.data_ptr(), stream,
-        )
+        _kernel = _build.library().fin_minimizer_windows
+    args = (codes.data_ptr(), B, L, k, m, best_v.data_ptr(), best_o.data_ptr(),
+            bad.data_ptr(), q.data_ptr())
+    if codes.device.index == torch.cuda.current_device():
+        rc = _kernel(*args, torch.cuda.current_stream().cuda_stream, THREADS, GROUPS_PER_THREAD)
+    else:
+        with torch.cuda.device(codes.device):
+            rc = _kernel(*args, torch.cuda.current_stream().cuda_stream, THREADS,
+                         GROUPS_PER_THREAD)
     if rc != 0:
         raise RuntimeError(f"minimizer_front kernel launch failed: CUDA error {rc}")
     minimizer_windows.launches += 1

@@ -22,8 +22,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from finito_tpu.index.index import FinimizerIndex, QueryResult
-from finito_tpu.index.minimizer import MinimizerIndex
+from finito_tpu_torch.index.index import FinimizerIndex, QueryResult
+from finito_tpu_torch.index.minimizer import MinimizerIndex
 from finito_tpu_torch.query.minimizer_engine import (
     DeviceMinimizerIndex,
     make_minimizer_locate,
@@ -239,7 +239,7 @@ class DeviceQueryEngine:
         interleaved (row 2j = read j forward, row 2j+1 = its RC).
         Returns (batch_idx, batch_codes, both), both None when every read
         was filtered."""
-        from finito_tpu.io.seqdb import encode_seq
+        from finito_tpu_torch.io.seqdb import encode_seq
 
         k = self.k
         batch_idx: List[int] = []

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from finito_tpu.index.minimizer import MinimizerIndex
+from finito_tpu_torch.index.minimizer import MinimizerIndex
 from finito_tpu_torch.ops.bits import U32, popcount32, slot32, u32
 from finito_tpu_torch.ops.minimizer_front import minimizer_windows, n_words
 from finito_tpu_torch.ops.streaming import compact_mask
@@ -53,7 +53,7 @@ class DeviceMinimizerIndex:
     its overlapped 4-word (k <= 32) or 8-word (k <= 64) rows, else None.
     Word tables are int32 bit patterns of the JAX uint32 tables."""
 
-    def __init__(self, mindex: MinimizerIndex, device="cpu"):
+    def __init__(self, mindex: MinimizerIndex, device="cuda"):
         if int(mindex.concat.size) >= (1 << 31):
             raise ValueError(
                 "unitig text exceeds int32 single-device addressing (2^31 bases)"
@@ -81,7 +81,7 @@ class DeviceMinimizerIndex:
         self._set(arrays, mindex.k, mindex.m, int(mindex.occ_key.size), mindex.h, device)
 
     @classmethod
-    def from_numpy(cls, arrays: dict, k: int, m: int, n_occ: int, h: int, device="cpu"):
+    def from_numpy(cls, arrays: dict, k: int, m: int, n_occ: int, h: int, device="cuda"):
         """The port's index from the JAX index's tables: arrays maps each
         name of LEAVES to np.asarray(leaf) (None for an absent leaf)."""
         obj = cls.__new__(cls)

@@ -1,6 +1,6 @@
 """Host (numpy) builders of the minimizer engine's device tables.
 
-A jax-free copy of the builders in finito_tpu/query/minimizer_engine.py
+The port's copy of the builders in finito_tpu/query/minimizer_engine.py
 (that module imports jax, which the port never does). The tests hold
 every function here equal to its original, table by table.
 """
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from finito_tpu.index.minimizer import MinimizerIndex
+from finito_tpu_torch.index.minimizer import MinimizerIndex
 
 _DESC_LEN_BITS = 6  # must match index.minimizer._LEN_BITS
 _SLOT_ROWS_MAX_DESC_BYTES = 64 << 20  # fused slot rows only below this descriptor size
@@ -126,7 +126,7 @@ def desc_to_rows(desc: np.ndarray) -> np.ndarray:
     n_occ < 2^31), and the exact length column (successive-start
     difference, not the 6-bit saturated stored length) bounds the slow
     path without a next-slot gather."""
-    from finito_tpu import native
+    from finito_tpu_torch import native
 
     rows = native.desc_to_rows_native(np.asarray(desc), _DESC_LEN_BITS)
     if rows is not None:

@@ -2,7 +2,9 @@
 CPU against the JAX engine's merged_pairs_flat and the host oracle
 FinimizerIndex.search, in both locate forms; the v1/v2 rule, the
 deferred-verify re-run, the RLE overflow fallback and the minimizer
-index cache. Every comparison is exact."""
+index cache. The port's engine takes the port's own FinimizerIndex, read
+by its loader from the files the JAX package writes. Every comparison is
+exact."""
 
 from __future__ import annotations
 
@@ -12,10 +14,11 @@ import torch
 
 import warnings
 
-from finito_tpu.index.minimizer import MinimizerIndex
 from finito_tpu.io.fastx import reverse_complement
 from finito_tpu.query import minimizer_engine as jme
 from finito_tpu.query.engine import DeviceQueryEngine as JaxEngine
+from finito_tpu_torch.index.index import FinimizerIndex as PortFinimizerIndex
+from finito_tpu_torch.index.minimizer import MinimizerIndex
 from finito_tpu_torch.query import engine as port_engine
 from finito_tpu_torch.query.engine import DeviceQueryEngine, merge_rle
 
@@ -48,41 +51,50 @@ def _reads(rng, unitigs, k):
     return reads
 
 
+def _port_index(jindex, prefix):
+    """The port's FinimizerIndex of the JAX package's jindex, read by the
+    port's loader from the files the JAX package writes at prefix."""
+    jindex.serialize(str(prefix))
+    return PortFinimizerIndex.load(str(prefix))
+
+
 @pytest.fixture(scope="module")
-def fixture():
+def fixture(tmp_path_factory):
+    """(the port's index, its engine on the CPU, reads, k, the JAX index)"""
     rng = np.random.default_rng(17)
     k = 6
     unitigs = gen_dspss(rng, 20, 10, 60, k)
-    index = build_index(unitigs, k)
-    return index, DeviceQueryEngine(index, device="cpu"), _reads(rng, unitigs, k), k
+    jindex = build_index(unitigs, k)
+    index = _port_index(jindex, tmp_path_factory.mktemp("engine") / "idx")
+    return index, DeviceQueryEngine(index, device="cpu"), _reads(rng, unitigs, k), k, jindex
 
 
 def test_merged_pairs_flat_equals_jax_engine(fixture):
-    index, engine, reads, _k = fixture
+    _index, engine, reads, _k, jindex = fixture
     got = engine.merged_pairs_flat(reads)
-    want = JaxEngine(index, mode="minimizer").merged_pairs_flat(reads)
+    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     exp_lines, ekf, ekr = _expected_merged_lines(
-        index, [r for r in reads if len(r) >= index.sbwt.get_k() and b"N" not in r]
+        jindex, [r for r in reads if len(r) >= jindex.sbwt.get_k() and b"N" not in r]
     )
     assert list(zip(got[1].tolist(), got[2].tolist())) == [p for line in exp_lines for p in line]
     assert (got[3], got[4]) == (ekf, ekr)
 
 
 def test_process_reads_equals_host_oracle(fixture):
-    index, engine, reads, _k = fixture
+    _index, engine, reads, _k, jindex = fixture
     for read, (f, r) in zip(reads, engine.process_reads(reads)):
-        of = index.search(read)
-        orr = index.search(reverse_complement(read))
+        of = jindex.search(read)
+        orr = jindex.search(reverse_complement(read))
         assert (f.local_offsets, f.n_found) == (of.local_offsets, of.n_found), read
         assert (r.local_offsets, r.n_found) == (orr.local_offsets, orr.n_found), read
 
 
 def test_search_fwd_rc_and_locate_batch(fixture):
-    index, engine, reads, k = fixture
+    _index, engine, reads, k, jindex = fixture
     f, _r = engine.search_fwd_rc(reads[0])
-    assert f.local_offsets == index.search(reads[0]).local_offsets
+    assert f.local_offsets == jindex.search(reads[0]).local_offsets
     _, _, both = engine._encode_both_strands(reads[:3])
     uid, off = engine.locate_batch(both)
     assert uid.shape == off.shape == (both.shape[0], both.shape[1] - k + 1)
@@ -92,7 +104,7 @@ def test_search_fwd_rc_and_locate_batch(fixture):
 def test_deferred_verify_overflow_rerun(fixture, monkeypatch):
     """A forced tiny slow-path capacity (FINITO_MIN_K0) must be caught by
     the deferred verify in _end and re-run to the exact answer."""
-    index, _, _, k = fixture
+    index, _, _, k, jindex = fixture
     engine = DeviceQueryEngine(index, device="cpu")
     rng = np.random.default_rng(31)
     reads = ["".join(rng.choice(list("ACGT"), 30)).encode() for _ in range(12)]
@@ -100,7 +112,7 @@ def test_deferred_verify_overflow_rerun(fixture, monkeypatch):
     h = engine.merged_pairs_flat_begin(reads)
     forced = engine.merged_pairs_flat_end(h)
     monkeypatch.delenv("FINITO_MIN_K0")
-    want = JaxEngine(index, mode="minimizer").merged_pairs_flat(reads)
+    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
     for a, b in zip(forced, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -108,7 +120,7 @@ def test_deferred_verify_overflow_rerun(fixture, monkeypatch):
 def test_rle_overflow_falls_back_to_host_merge(fixture):
     """Runs past the RLE capacity: _end takes the full-window host merge,
     with the same streams as the RLE path."""
-    _, engine, reads, _ = fixture
+    _, engine, reads, _, _ = fixture
     want = engine.merged_pairs_flat(reads)
     line_lens, rest = engine.merged_pairs_flat_begin(reads)
     batch_codes, lens, uid_d, off_d, _K, _out, verify, lens_d = rest
@@ -132,24 +144,24 @@ def test_v2_switch_constant_equals_jax(fixture):
 def test_forced_v2_equals_jax_and_oracle(fixture, monkeypatch):
     """FINITO_MINIMIZER_V2=1 on both engines: the port's v2 path gives the
     JAX engine's merged_pairs_flat and the host oracle's process_reads."""
-    index, _, reads, _k = fixture
+    index, _, reads, _k, jindex = fixture
     monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
     engine = DeviceQueryEngine(index, device="cpu")
     assert engine.use_v2 is True
     got = engine.merged_pairs_flat(reads)
-    want = JaxEngine(index, mode="minimizer").merged_pairs_flat(reads)
+    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     for read, (f, r) in zip(reads, engine.process_reads(reads)):
-        assert f.local_offsets == index.search(read).local_offsets, read
-        assert r.local_offsets == index.search(reverse_complement(read)).local_offsets, read
+        assert f.local_offsets == jindex.search(read).local_offsets, read
+        assert r.local_offsets == jindex.search(reverse_complement(read)).local_offsets, read
 
 
 def test_forced_v2_head_overflow_rerun(fixture, monkeypatch):
     """FINITO_MIN_K0 under v2 sets K_slow = 1 and K_heads = 4, below the
     batch's head count: the deferred verify grows both and re-runs to
     the exact answer, and the memo keeps the grown (K, KH) per (B, W)."""
-    index, _, reads, _ = fixture
+    index, _, reads, _, jindex = fixture
     monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
     engine = DeviceQueryEngine(index, device="cpu")
     monkeypatch.setenv("FINITO_MIN_K0", "1")
@@ -160,7 +172,7 @@ def test_forced_v2_head_overflow_rerun(fixture, monkeypatch):
     (B, W), (K, KH) = next(iter(engine._sizes.items()))
     assert KH > 4 and B * W >= KH
     monkeypatch.delenv("FINITO_MIN_K0")
-    want = JaxEngine(index, mode="minimizer").merged_pairs_flat(reads)
+    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
     for a, b in zip(forced, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -169,7 +181,7 @@ def test_mindex_cache_fresh_reused_stale(fixture, tmp_path, monkeypatch):
     """A fresh cache is written after the build; a matching cache is
     loaded without a rebuild; a cache of another index warns and is
     rebuilt. Every engine answers as the one without a cache."""
-    index, engine, reads, k = fixture
+    index, engine, reads, k, _ = fixture
     want = engine.merged_pairs_flat(reads)
     cache = str(tmp_path / "mindex")
 
@@ -190,7 +202,8 @@ def test_mindex_cache_fresh_reused_stale(fixture, tmp_path, monkeypatch):
         check(DeviceQueryEngine(index, device="cpu", mindex_cache=cache))
     monkeypatch.setattr(MinimizerIndex, "from_finimizer_index", built)
 
-    other = build_index(gen_dspss(np.random.default_rng(5), 6, 10, 40, k), k)
+    other = _port_index(build_index(gen_dspss(np.random.default_rng(5), 6, 10, 40, k), k),
+                        tmp_path / "other")
     with pytest.warns(UserWarning, match="does not match"):
         DeviceQueryEngine(other, device="cpu", mindex_cache=cache)
     assert open(cache, "rb").read() != fresh
@@ -217,7 +230,7 @@ def test_cuda_without_card_raises(fixture):
 def test_engine_on_card_equals_cpu(fixture, monkeypatch, v2):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    index, engine, reads, _ = fixture
+    index, engine, reads, _, _ = fixture
     monkeypatch.setenv("FINITO_MINIMIZER_V2", v2)
     got = DeviceQueryEngine(index, device="cuda").merged_pairs_flat(reads)
     for a, b in zip(got, engine.merged_pairs_flat(reads)):

@@ -78,6 +78,10 @@ def test_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("B,L,k,m", [
     (8192, 128, 31, 16), (8192, 128, 21, 12), (8192, 128, 63, 28),
     (8192, 128, 95, 16), (64, 4096, 31, 16), (256, 128, 31, 3), (7, 300, 250, 16),
+    # group sizes 4, 2, 1 (W = 108, 98, 97), m = k, m = 1, the q-word edges, W = 1, B = 1
+    (512, 128, 21, 12), (512, 128, 31, 31), (512, 128, 31, 1), (512, 128, 16, 8),
+    (512, 128, 17, 9), (512, 128, 32, 16), (512, 128, 33, 17), (4096, 31, 31, 16),
+    (1, 128, 31, 16), (1, 31, 31, 31),
 ])
 def test_kernel_matches_plain_on_card(B, L, k, m):
     if not torch.cuda.is_available():

@@ -1,0 +1,82 @@
+"""The port shares no code with the JAX package: with finito_tpu, jax,
+jaxlib and bench.py blocked, every module of finito_tpu_torch imports,
+and the whole tiny pipeline runs through ``python -m
+finito_tpu_torch.cli`` on the CPU, each command with exit code 0."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKED = textwrap.dedent("""
+    import sys
+
+    FOREIGN = ("finito_tpu", "jax", "jaxlib", "bench")
+    for name in FOREIGN:
+        sys.modules[name] = None  # any import of them raises ImportError
+
+    import importlib
+    import pkgutil
+    import runpy
+
+    import numpy as np
+
+    import finito_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(finito_tpu_torch.__path__, "finito_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    print("imported", len(names), "modules")
+
+    tmp, = sys.argv[1:]
+
+    def cli(*argv):
+        sys.argv = ["finito_tpu_torch.cli", *argv]
+        try:
+            runpy.run_module("finito_tpu_torch.cli", run_name="__main__", alter_sys=True)
+            code = None
+        except SystemExit as e:
+            code = e.code
+        assert code in (0, None), (argv, code)
+
+    rng = np.random.default_rng(0)
+    genome = "".join(rng.choice(list("ACGT"), 1500))
+    reads = [genome[s : s + 80] for s in rng.integers(0, len(genome) - 80, 30)]
+    reads += ["ACGTNACGTACGTAC", "ACG"]
+    with open(tmp + "/reads.fna", "w") as f:
+        f.writelines(f">r{i}\\n{r}\\n" for i, r in enumerate(reads))
+    p = lambda name: tmp + "/" + name
+    cli("unitigs", "-k", "11", "-i", p("reads.fna"), "-o", p("u.fna"))
+    cli("flip-unitigs", "-k", "11", "-i", p("u.fna"), "-o", p("f.fna"))
+    cli("sbwt-build", "-k", "11", "-i", p("f.fna"), "-o", p("x.sbwt"))
+    cli("convert-sbwt", "-i", p("x.sbwt"), "-o", p("a.sbwt"), "--to", "algbio")
+    cli("convert-sbwt", "-i", p("a.sbwt"), "-o", p("b.sbwt"), "--to", "finito")
+    cli("build-fmin", "-i", p("x.sbwt"), "-u", p("f.fna"), "-o", p("idx"))
+    cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("out.txt"), "--device", "cpu")
+    cli("kmer-mapper", "build", "-u", p("f.fna"), "-k", "11", "-o", p("km"))
+    cli("kmer-mapper", "query", "-i", p("km"), "-q", p("reads.fna"), "-r", "-o", p("km.txt"),
+        "--device", "cpu")
+    cli("kmer-mapper", "query", "-i", p("km"), "-q", p("reads.fna"), "-r", "--host-exact",
+        "-o", p("kmh.txt"))
+    cli("kmer-mapper", "extract-index-unitigs", "-i", p("km"), "-o", p("ex.fna"))
+
+    out = open(p("out.txt")).read().splitlines()
+    assert len(out) == len(reads) and out[-1] == "" and "(-1,-1)" not in out[0], out[:2]
+    assert open(p("km.txt")).read() == open(p("kmh.txt")).read()
+    assert open(p("b.sbwt"), "rb").read() == open(p("x.sbwt"), "rb").read()
+    foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
+    assert not foreign, foreign
+    print("ISOLATED OK")
+""")
+
+
+def test_port_runs_with_jax_package_blocked(tmp_path):
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    r = subprocess.run([sys.executable, "-c", BLOCKED, str(tmp_path)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "ISOLATED OK" in r.stdout

@@ -158,7 +158,7 @@ def test_cuda_without_card_raises(fixture):
         pytest.skip("a CUDA card is present")
     _, idx, _ = fixture
     with pytest.raises(RuntimeError):
-        port_km._device_locate(MinimizerIndex.load(idx), [b"ACGTACGTACGT"], False, "cuda")
+        port_km._device_locate(port_km._load_index(idx), [b"ACGTACGTACGT"], False, "cuda")
 
 
 @pytest.mark.cuda

@@ -3,9 +3,15 @@
 against the JAX package: host builders table by table, the device index
 from the JAX index's leaves, compact_mask, and every output of the v1
 and v2 locates and their occurrence-counting forms on the same reads.
-Every comparison is exact."""
+The port's tables and locates take the port's own MinimizerIndex,
+read by its loader from the file the JAX package writes. Every
+comparison is exact."""
 
 from __future__ import annotations
+
+import inspect
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -17,6 +23,7 @@ from finito_tpu.index.minimizer import MinimizerIndex, _pack_desc
 from finito_tpu.io.seqdb import decode_seq, encode_seq
 from finito_tpu.ops.streaming import compact_mask as jax_compact_mask
 from finito_tpu.query import minimizer_engine as jme
+from finito_tpu_torch.index.minimizer import MinimizerIndex as PortMinimizerIndex
 from finito_tpu_torch.ops.streaming import compact_mask
 from finito_tpu_torch.query import minimizer_engine as tme
 from finito_tpu_torch.query import minimizer_tables as tables
@@ -26,6 +33,15 @@ from finito_tpu_torch.query import minimizer_tables as tables
 from test_device_engine import build_index, gen_dspss
 
 torch.set_num_threads(1)
+
+
+def _port(mi):
+    """The port's MinimizerIndex of the JAX package's mi, read by the
+    port's loader from the file the JAX package writes."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "mi")
+        mi.serialize(path)
+        return PortMinimizerIndex.load(path)
 
 
 def _permuted_unitigs(unitigs, k):
@@ -69,8 +85,9 @@ def _reads(rng, permuted, B, L, mutate=10):
 @pytest.mark.parametrize("k,m", [(9, 4), (31, 16), (40, 16)])
 def test_table_builders_equal_jax(k, m):
     mi, _, _ = _mindex(50 + k, k, m)
+    pmi = _port(mi)
     for name in ("build_occ_rows", "build_slot_rows"):
-        np.testing.assert_array_equal(getattr(tables, name)(mi), getattr(jme, name)(mi))
+        np.testing.assert_array_equal(getattr(tables, name)(pmi), getattr(jme, name)(mi))
     np.testing.assert_array_equal(tables.desc_to_rows(mi.desc), jme.desc_to_rows(mi.desc))
     for pad in (2, 7):
         words = tables.pack_text_words(mi.concat, pad)
@@ -125,7 +142,7 @@ def test_from_numpy_equals_own_build(k, m):
     arrays = {name: None if leaf is None else np.asarray(leaf)
               for name, leaf in zip(tme.LEAVES, leaves)}
     a = tme.DeviceMinimizerIndex.from_numpy(arrays, jk, jm, jn, jh, "cpu")
-    b = tme.DeviceMinimizerIndex(mi, "cpu")
+    b = tme.DeviceMinimizerIndex(_port(mi), "cpu")
     assert (a.k, a.m, a.n_occ, a.h) == (b.k, b.m, b.n_occ, b.h) == (jk, jm, jn, jh)
     for name in tme.LEAVES:
         ta, tb, ref = getattr(a, name), getattr(b, name), arrays[name]
@@ -135,6 +152,17 @@ def test_from_numpy_equals_own_build(k, m):
         assert ta.dtype == tb.dtype == torch.int32, name
         assert torch.equal(ta, tb), name
         np.testing.assert_array_equal(ta.numpy(), ref.view(np.int32), name)
+
+
+def test_device_defaults_to_cuda():
+    """The device index targets the card unless the caller asks for the
+    CPU, as every test here does."""
+    for fn in (tme.DeviceMinimizerIndex.__init__, tme.DeviceMinimizerIndex.from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        mi, _, _ = _mindex(3, 9, 4, n=3)
+        with pytest.raises((RuntimeError, AssertionError)):
+            tme.DeviceMinimizerIndex(_port(mi))
 
 
 # ---------------------------------------------------------- compact_mask
@@ -163,7 +191,7 @@ def test_compact_mask_empty():
 
 def _both_locates(mi, reads, K, narrow=False):
     jdmi = jme.DeviceMinimizerIndex(mi)
-    tdmi = tme.DeviceMinimizerIndex(mi, "cpu")
+    tdmi = tme.DeviceMinimizerIndex(_port(mi), "cpu")
     if narrow:
         jdmi.slot_rows = None
         tdmi.slot_rows = None
@@ -225,7 +253,7 @@ def test_locate_index_without_occurrences(narrow):
     as the host oracle does."""
     rng = np.random.default_rng(0)
     mi = _no_occurrence_index(rng)
-    dmi = tme.DeviceMinimizerIndex(mi, "cpu")
+    dmi = tme.DeviceMinimizerIndex(_port(mi), "cpu")
     if narrow:
         dmi.slot_rows = None
     reads = rng.integers(0, 4, (4, 30)).astype(np.uint8)
@@ -250,7 +278,7 @@ def _v2_both(jdmi, tdmi, reads, K, KH, count=False):
 
 def _indexes(mi, narrow):
     jdmi = jme.DeviceMinimizerIndex(mi)
-    tdmi = tme.DeviceMinimizerIndex(mi, "cpu")
+    tdmi = tme.DeviceMinimizerIndex(_port(mi), "cpu")
     if narrow:
         jdmi.slot_rows = None
         tdmi.slot_rows = None
@@ -374,7 +402,7 @@ def test_locate_on_card_equals_cpu(k, m, narrow):
     reads = torch.from_numpy(_reads(rng, permuted, 64, 2 * k + 40))
     out = []
     for device in ("cpu", "cuda"):
-        dmi = tme.DeviceMinimizerIndex(mi, device)
+        dmi = tme.DeviceMinimizerIndex(_port(mi), device)
         if narrow:
             dmi.slot_rows = None
         out.append(tme.make_minimizer_locate(dmi, 4096)(reads.to(device)))
@@ -399,7 +427,7 @@ def test_v2_and_counting_on_card_equal_cpu(k, m, narrow):
     for form in forms:
         out = []
         for device in ("cpu", "cuda"):
-            dmi = tme.DeviceMinimizerIndex(mi, device)
+            dmi = tme.DeviceMinimizerIndex(_port(mi), device)
             if narrow:
                 dmi.slot_rows = None
             out.append(form(dmi)(reads.to(device)))
