@@ -12,10 +12,10 @@ more each:
   2. build: compiles the CUDA kernels (nvcc) and the host library (g++)
      from the checkout's sources;
   3. kernel: the front-end kernel against its plain PyTorch version on
-     the card, bit for bit, at the main path's shapes, a long-read shape,
-     edge shapes and one shape with B * L near 2^30; at the main path's
-     shape its device time (torch.profiler), the wrapper's time and the
-     plain version's (CUDA events), and the bound;
+     the card, bit for bit, at the main path's chunk shape, a long-read
+     shape, edge shapes and one shape with B * L near 2^30; at the main
+     path's chunk shape its device time (torch.profiler), the wrapper's
+     time and the plain version's (CUDA events), and the bound;
   4. per index (1 Mbp: fused slot rows, v1 locate; 4,641,652 bp, E. coli
      K-12 MG1655's length: narrow descriptor, v2 locate): a random genome
      cut into unitigs with k-1 overlaps (gen_dspss below, k=31),
@@ -23,7 +23,9 @@ more each:
      128 bp reads plus short and N-containing reads;
      a. search-fmin --device cuda, the locate form it ran, every window
         checked against the analytic DSPSS oracle and sampled reads
-        against the host oracle FinimizerIndex.search;
+        against the host oracle FinimizerIndex.search; every input the
+        run gave the front-end kernel is recorded, and the kernel is held
+        bit for bit to its plain version on each (so also in c.);
      b. the four locate forms (v1, v2 and their occurrence-counting
         forms) on one (8192, 128) CLI chunk: equal answers, cnt equal to
         the found flag (each k-mer of a DSPSS occurs once), ms per batch
@@ -34,7 +36,10 @@ more each:
         query --host-exact, windows/s; then the multi-occurrence error
         (one unitig stored twice) under both locate forms: exit code 1.
 
-Prints the kernels' JSON line, then, last, {"ok": true, "device": ...}.
+Prints the kernels' JSON line (launches in total and per main-path run),
+then, last, {"ok": true, "device": ...}. --kernel-only stops after
+phase 3; --sweep times the kernel across its shapes instead (one JSON
+line a row).
 Any failure raises, and the exit code is then not 0. It imports nothing
 of JAX, of the JAX package finito_tpu or of bench.py, and fails if any
 of them was imported.
@@ -114,10 +119,13 @@ def padded_codes(rng, B: int, L: int) -> np.ndarray:
     return codes
 
 
-def device_ms(fn, kernel_name: str, reps: int = 50) -> float:
-    """Mean device time in milliseconds of the kernel named kernel_name
-    per launch, from torch.profiler's device events over reps calls of
-    fn after a warm-up; host time between launches is not counted."""
+def device_ms(fn, kernel_name: str, reps: int = 50) -> tuple:
+    """Mean device time in milliseconds of the kernels whose name holds
+    kernel_name, per launch, from torch.profiler's device events over
+    reps calls of fn after a warm-up (host time between launches is not
+    counted). Returns (ms, the launches the profiler saw, their names).
+    The mean is over the events seen, so an event the profiler drops at
+    the edge of its window changes no result; seeing none fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,10 +139,9 @@ def device_ms(fn, kernel_name: str, reps: int = 50) -> float:
     hits = [e for e in prof.key_averages() if kernel_name in e.key]
     n = sum(e.count for e in hits)
     us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total for e in hits)
-    # the profiler may drop an event at the edge of its window
-    if not reps - 5 <= n <= reps or us <= 0:
+    if n < 1 or us <= 0:
         raise AssertionError(f"profiler saw {n} launches of {kernel_name} ({us} us) for {reps} calls")
-    return us / n / 1e3
+    return us / n / 1e3, n, sorted({e.key for e in hits})
 
 
 def front_bound_ms(B: int, L: int, k: int, m: int) -> tuple:
@@ -198,17 +205,83 @@ def kernel_phase(rng) -> dict:
     B, L, k, m = MAIN_SHAPE
     codes = torch.from_numpy(padded_codes(rng, B, L)).cuda()
     ms = time_cuda(lambda: minimizer_windows(codes, k, m))
-    dev_ms = device_ms(lambda: minimizer_windows(codes, k, m), "minimizer_front")
+    dev_ms, n_seen, _ = device_ms(lambda: minimizer_windows(codes, k, m), "minimizer_front")
     plain_ms = time_cuda(lambda: minimizer_windows_ref(codes, k, m))
     ms2 = time_cuda(lambda: minimizer_windows(codes, k, m))
     bound_ms, bound_by = front_bound_ms(B, L, k, m)
-    log(f"kernel time {MAIN_SHAPE}: device {dev_ms} ms per launch (torch.profiler, 50 launches); "
+    log(f"kernel time {MAIN_SHAPE}: device {dev_ms} ms per launch (torch.profiler, "
+        f"{n_seen} of 50 launches seen); "
         f"wrapper {ms} ms, {ms2} ms per call (CUDA events, mean of 50 calls after warm-up, "
         f"before and after the plain version); plain {plain_ms} ms; bound {bound_ms} ms "
         f"({bound_by}); device time is {bound_ms / dev_ms:.3f} of the bound")
     return {"max_abs_err": max_err, "ms": ms, "ms_after": ms2, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / dev_ms}
+
+
+def front_shifted(codes, k: int, m: int, shift: int):
+    """The kernel's four outputs, from one buffer whose start lies shift
+    bytes past a 16-byte boundary; the library is called directly (not
+    counted). The kernel stores groups of G windows only where every
+    plane is on the 4G-byte grid, so shift 8 makes it take groups of 2
+    where 4 divides W: the two group sizes at one shape."""
+    import torch
+
+    from finito_tpu_torch.ops import _build
+    from finito_tpu_torch.ops.minimizer_front import n_words
+
+    assert shift % 4 == 0, "the 4-byte planes stay aligned"
+    B, L = codes.shape
+    W, nw = L - k + 1, n_words(k)
+    BW = B * W
+    size = BW * (4 * (2 + nw) + 1)
+    raw = torch.empty(size + 32, dtype=torch.uint8, device=codes.device)
+    off = (-raw.data_ptr()) % 16 + shift
+    buf = raw[off : off + size]
+    words = buf[: 4 * BW * (2 + nw)].view(torch.int32)
+    out = (words[:BW].view(B, W), words[BW : 2 * BW].view(B, W),
+           buf[4 * BW * (2 + nw) :].view(torch.bool).view(B, W), words[2 * BW :].view(nw, B, W))
+    rc = _build.library().fin_minimizer_windows(
+        codes.data_ptr(), B, L, k, m, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"minimizer_front kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def sweep_phase(rng, card: str) -> None:
+    """Device time of the front-end kernel across what moves it: the row
+    width (which sets the group size), the group size at one width, the
+    minimum's length R = k - m + 1 and the batch. Every row is bit-exact
+    against the plain version first; one JSON line a row."""
+    import torch
+
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows, minimizer_windows_ref
+
+    def row(what, B=8192, L=128, k=31, m=16, shift=None):
+        codes = torch.from_numpy(padded_codes(rng, B, L)).cuda()
+        fn = ((lambda: minimizer_windows(codes, k, m)) if shift is None
+              else (lambda: front_shifted(codes, k, m, shift)))
+        if not all(torch.equal(a, b) for a, b in zip(fn(), minimizer_windows_ref(codes, k, m))):
+            raise AssertionError(f"front-end kernel disagrees with the plain version: {what}")
+        ms, n, names = device_ms(fn, "minimizer_front")
+        bound, _ = front_bound_ms(B, L, k, m)
+        groups = sorted({int(x) for name in names for x in re.findall(r"kernel<(\d+)>", name)})
+        log(json.dumps({"row": what, "B": B, "L": L, "W": L - k + 1, "k": k, "m": m,
+                        "group": groups, "device_ms": ms, "events": n, "bound_ms": bound,
+                        "share_of_bound": bound / ms, "card": card}))
+
+    for L in (130, 128, 127):
+        row(f"width W={L - 30}", L=L)
+    # W = 108, 100: groups of 4, then of 2 with the planes shifted off the
+    # 16-byte grid; W = 98: groups of 2 both ways, the shift's own cost
+    for L, k, m in ((128, 21, 12), (130, 31, 16), (128, 31, 16)):
+        row("group at one width", L=L, k=k, m=m)
+        row("group at one width, planes off the 16-byte grid", L=L, k=k, m=m, shift=8)
+    for m in (31, 16, 1):
+        row(f"minimum over R={32 - m}", m=m)
+    for B in (2048, 8192, 32768):
+        row("batch", B=B)
 
 
 def draw_cuts(rng, genome_len: int, k: int, mean_unitig: int = 2000) -> np.ndarray:
@@ -417,38 +490,72 @@ def locate_forms(index, codes_both: np.ndarray) -> dict:
     return res
 
 
-def run_counted(main, argv):
+def run_counted(main, argv, seen=None):
     """One CLI call of a main path with the front-end kernel's launch
-    count set to 0 just before it and read just after. Returns (exit
-    code, stderr text, wall seconds, launches)."""
+    count set to 0 just before it and read just after. When seen is a
+    list, a copy of every input (codes, k, m) the run gives the front end
+    on the card is appended to it. Returns (exit code, stderr text, wall
+    seconds, launches)."""
     import torch
 
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.query import minimizer_engine
+
+    def recorded(codes, k, m):
+        if codes.is_cuda:
+            seen.append((codes.clone(), k, m))
+        return minimizer_windows(codes, k, m)
 
     torch.cuda.synchronize()
     minimizer_windows.launches = 0
+    if seen is not None:
+        minimizer_engine.minimizer_windows = recorded
     err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        try:
+    try:
+        with contextlib.redirect_stderr(err):
             rc = main(argv)
-        except SystemExit as e:
-            rc = e.code
+    except SystemExit as e:
+        rc = e.code
+    finally:
+        minimizer_engine.minimizer_windows = minimizer_windows
     wall = time.perf_counter() - t0
     return rc, err.getvalue(), wall, minimizer_windows.launches
 
 
+def check_inputs(what: str, seen: list, launches: int) -> int:
+    """The front-end kernel against its plain version, bit for bit, on
+    every input a main-path run gave it; returns the largest error."""
+    if len(seen) != launches:
+        raise AssertionError(f"{what}: {launches} kernel launches but {len(seen)} recorded inputs")
+    err, shapes = 0, {}
+    for codes, k, m in seen:
+        e = compare_front(codes, k, m, codes.shape[0])
+        if e:
+            raise AssertionError(f"{what}: front-end kernel disagrees with the plain version at "
+                                 f"{(*codes.shape, k, m)}")
+        shape = (*codes.shape, k, m)
+        shapes[shape] = shapes.get(shape, 0) + 1
+        err = max(err, e)
+    log(f"kernel at {what}'s own inputs: bit-exact at every launch, (B, L, k, m): "
+        + ", ".join(f"{s} x{n}" for s, n in shapes.items()))
+    return err
+
+
 def search_phase(genome_len, prefix, qpath, work, check):
-    """search-fmin through the port's CLI, its output held to check.
+    """search-fmin through the port's CLI, its output held to check and
+    the kernel held to its plain version on the run's own inputs.
     Returns (its kernel launches, the loaded FinimizerIndex)."""
     from finito_tpu_torch import cli
     from finito_tpu_torch.index.index import FinimizerIndex
     from finito_tpu_torch.query import engine
 
     opath = os.path.join(work, "out.txt")
+    seen = []
     with forms_picked(engine) as picked:
         rc, logs, wall, launches = run_counted(
-            cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--device", DEVICE])
+            cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--device", DEVICE],
+            seen)
     if rc != 0:
         raise RuntimeError(f"search-fmin failed:\n{logs}")
     form = "v2" if picked == [True] else "v1" if picked == [False] else f"? {picked}"
@@ -462,6 +569,7 @@ def search_phase(genome_len, prefix, qpath, work, check):
         raise AssertionError("search-fmin did not launch the front-end kernel")
     if form != ("v2" if genome_len == GENOMES[1] else "v1"):
         raise AssertionError(f"search-fmin ran locate {form} at {genome_len} bp")
+    check_inputs(f"search-fmin {genome_len} bp", seen, launches)
 
     index = FinimizerIndex.load(prefix)
     check(f"search-fmin {genome_len} bp", opath, index.unitigs.concat, index.unitigs.ends,
@@ -471,7 +579,8 @@ def search_phase(genome_len, prefix, qpath, work, check):
 
 def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
     """kmer-mapper build and query -r --device cuda through the port's
-    CLI, its output held to check; then the multi-occurrence error.
+    CLI, its output held to check and the kernel held to its plain
+    version on the query's own inputs; then the multi-occurrence error.
     Returns the query's kernel launches."""
     from finito_tpu_torch import cli, kmer_mapper
     from finito_tpu_torch.index.minimizer import MinimizerIndex
@@ -484,10 +593,11 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
     if rc != 0:
         raise RuntimeError(f"kmer-mapper build failed:\n{logs}")
     log(f"kmer-mapper build {genome_len} bp: {time.perf_counter() - t0} s")
+    seen = []
     with forms_picked(kmer_mapper) as picked:
         rc, logs, wall, launches = run_counted(
             cli.main, ["kmer-mapper", "query", "-i", km, "-q", qpath, "-r", "-o", kout,
-                       "--device", DEVICE])
+                       "--device", DEVICE], seen)
     if rc != 0:
         raise RuntimeError(f"kmer-mapper query failed:\n{logs}")
     form = "v2" if picked == [True] else "v1" if picked == [False] else f"? {picked}"
@@ -496,6 +606,7 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
         f"front-end kernel launches {launches}")
     if launches <= 0:
         raise AssertionError("kmer-mapper query did not launch the front-end kernel")
+    check_inputs(f"kmer-mapper query -r {genome_len} bp", seen, launches)
 
     mindex = MinimizerIndex.load(km)
 
@@ -540,9 +651,9 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
     return launches
 
 
-def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
+def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> dict:
     """One index size end to end; returns the front-end kernel launches
-    of its main-path runs (search-fmin and kmer-mapper query)."""
+    of each of its main-path runs (search-fmin and kmer-mapper query)."""
     from finito_tpu_torch.io.seqdb import decode_seq
 
     genome, cuts, prefix = build_index(genome_len, seed, work)
@@ -571,9 +682,12 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> int:
                 raise AssertionError(f"{what}: read disagrees with {oracle_name}: {r!r}")
         log(f"check {what}: {len(extra)} short/N reads and 32 sampled reads equal {oracle_name}")
 
-    launches, index = search_phase(genome_len, prefix, qpath, work, check)
-    launches += kmer_mapper_phase(genome_len, os.path.join(work, "unitigs.fna"), qpath, work,
-                                  check, 2 * n_reads * (READ_LEN - K + 1))
+    launches = {}
+    launches[f"search-fmin {genome_len} bp"], index = search_phase(
+        genome_len, prefix, qpath, work, check)
+    launches[f"kmer-mapper query -r {genome_len} bp"] = kmer_mapper_phase(
+        genome_len, os.path.join(work, "unitigs.fna"), qpath, work, check,
+        2 * n_reads * (READ_LEN - K + 1))
 
     chunk = reads[:4096]  # one CLI chunk: 4096 reads, both strands interleaved
     both = np.empty((2 * len(chunk), READ_LEN), np.uint8)
@@ -596,6 +710,8 @@ def main() -> int:
     p.add_argument("--seed", type=int, default=0, help="seed of genomes and reads")
     p.add_argument("--kernel-only", action="store_true",
                    help="stop after the kernel phase (its check and times); prints no ok line")
+    p.add_argument("--sweep", action="store_true",
+                   help="time the kernel across widths, group sizes, R and batch; no ok line")
     args = p.parse_args()
 
     import torch
@@ -622,16 +738,19 @@ def main() -> int:
     log(f"build: host library {time.perf_counter() - t0} s "
         f"({'g++ ' + str(gxx) + ' s' if gxx is not None else 'cached'}, {native.build_info['path']})")
 
+    if args.sweep:
+        sweep_phase(np.random.default_rng(args.seed), card)
+        return 0
     kern = kernel_phase(np.random.default_rng(args.seed))
     if args.kernel_only:
         log(json.dumps({"kernel_only": kern, "card": card}))
         return 0
-    launches = 0
+    launches = {}
     scratch = os.path.join(HERE, "build")
     os.makedirs(scratch, exist_ok=True)
     for genome_len in GENOMES:
         with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_") as work:
-            launches += index_phase(genome_len, args.seed, N_READS, work)
+            launches.update(index_phase(genome_len, args.seed, N_READS, work))
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     if foreign:
@@ -640,7 +759,8 @@ def main() -> int:
         "name": "minimizer_windows", "route": "cuda",
         "source": "finito_tpu_torch/csrc/minimizer_front.cu",
         "replaces": "finito_tpu/ops/pallas_min.py:124",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "device_ms": kern["device_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "share_of_bound": kern["share_of_bound"], "library_ms": None,

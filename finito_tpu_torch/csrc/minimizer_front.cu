@@ -62,6 +62,10 @@ namespace {
 constexpr uint32_t kMix32 = 0x9E3779B1u;  // index.minimizer._MIX
 constexpr long long kSmemDefault = 48 * 1024;
 constexpr long long kSmemBudget = 96 * 1024;  // two blocks still fit on an SM
+// launch shape: threads per block and window groups per thread (launch
+// shapes of 128 to 1,024 windows per block time alike at the main shape)
+constexpr int kThreads = 256;
+constexpr int kGroupsPerThread = 2;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t v) {
   return (v * kMix32) ^ (v >> 16);
@@ -295,10 +299,11 @@ minimizer_front_kernel(const uint8_t* __restrict__ codes, unsigned BL,
 
 template <int G>
 int launch(const uint8_t* codes, long long B, long long L, int k, int m, Out out,
-           cudaStream_t stream, int threads, int wpt) {
+           cudaStream_t stream) {
   const long long W = L - k + 1;
   const long long Wg = W / G;
   const int n_words = (2 * k + 31) / 32;
+  int threads = kThreads, wpt = kGroupsPerThread;
   long long n = 0, smem = 0;
   for (;;) {
     const long long groups = (long long)threads * wpt;
@@ -333,19 +338,15 @@ int launch(const uint8_t* codes, long long B, long long L, int k, int m, Out out
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream, passed as a handle)
-// with `threads` threads of `wpt` groups each (the block shrinks while its
-// shared memory would pass the budget) and returns cudaGetLastError(); the
-// caller raises when it is not 0. The group is 4 windows when 4 divides W,
-// else 2 when 2 does, else 1, and smaller where a plane is not on the grid
-// of its stores.
+// and returns cudaGetLastError(); the caller raises when it is not 0. The
+// group is 4 windows when 4 divides W, else 2 when 2 does, else 1, and
+// smaller where a plane is not on the grid of its stores.
 extern "C" int fin_minimizer_windows(const void* codes, long long B,
                                      long long L, int k, int m,
                                      void* best_v, void* best_o, void* bad,
-                                     void* q_words, void* stream, int threads,
-                                     int wpt) {
+                                     void* q_words, void* stream) {
   const long long W = L - k + 1;
-  if (B <= 0 || W <= 0 || m < 1 || m > k || B * L >= (1LL << 31) ||
-      threads < 32 || threads > 256 || threads % 32 || wpt < 1) {
+  if (B <= 0 || W <= 0 || m < 1 || m > k || B * L >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto on_grid = [&](int g) {
@@ -358,7 +359,7 @@ extern "C" int fin_minimizer_windows(const void* codes, long long B,
   const Out out{(uint32_t*)best_v, (int32_t*)best_o, (uint8_t*)bad, (uint32_t*)q_words};
   const auto* c = (const uint8_t*)codes;
   const auto st = (cudaStream_t)stream;
-  if (on_grid(4)) return launch<4>(c, B, L, k, m, out, st, threads, wpt);
-  if (on_grid(2)) return launch<2>(c, B, L, k, m, out, st, threads, wpt);
-  return launch<1>(c, B, L, k, m, out, st, threads, wpt);
+  if (on_grid(4)) return launch<4>(c, B, L, k, m, out, st);
+  if (on_grid(2)) return launch<2>(c, B, L, k, m, out, st);
+  return launch<1>(c, B, L, k, m, out, st);
 }

@@ -78,7 +78,7 @@ def library() -> ctypes.CDLL:
             _compile(path)
         lib = ctypes.CDLL(str(path))
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.fin_minimizer_windows.argtypes = [vp, ll, ll, ci, ci, vp, vp, vp, vp, vp, ci, ci]
+        lib.fin_minimizer_windows.argtypes = [vp, ll, ll, ci, ci, vp, vp, vp, vp, vp]
         lib.fin_minimizer_windows.restype = ci
         build_info["path"] = str(path)
         _lib = lib

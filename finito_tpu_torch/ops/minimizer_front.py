@@ -57,9 +57,6 @@ def minimizer_windows_ref(codes: torch.Tensor, k: int, m: int):
     return to_i32(best_v), best_o, bad, to_i32(q)
 
 
-# the kernel's launch shape: threads per block, window groups per thread
-THREADS = 256
-GROUPS_PER_THREAD = 2
 _kernel = None  # the ctypes function, loaded on the first launch
 
 
@@ -99,11 +96,10 @@ def minimizer_windows(codes: torch.Tensor, k: int, m: int):
     args = (codes.data_ptr(), B, L, k, m, best_v.data_ptr(), best_o.data_ptr(),
             bad.data_ptr(), q.data_ptr())
     if codes.device.index == torch.cuda.current_device():
-        rc = _kernel(*args, torch.cuda.current_stream().cuda_stream, THREADS, GROUPS_PER_THREAD)
+        rc = _kernel(*args, torch.cuda.current_stream().cuda_stream)
     else:
         with torch.cuda.device(codes.device):
-            rc = _kernel(*args, torch.cuda.current_stream().cuda_stream, THREADS,
-                         GROUPS_PER_THREAD)
+            rc = _kernel(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"minimizer_front kernel launch failed: CUDA error {rc}")
     minimizer_windows.launches += 1
