@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths, ``search-fmin --engine minimizer`` and
+Drives the port's main paths, ``search-fmin`` (every --engine) and
 ``kmer-mapper query``, on one device through the port's CLI, at
 realistic index sizes, and checks every answer. Phases, one line or
 more each:
@@ -34,12 +34,21 @@ more each:
         every window against the analytic oracle (unitig ids in the colex
         order of their first k-mers), short/N and sampled reads against
         query --host-exact, windows/s; then the multi-occurrence error
-        (one unitig stored twice) under both locate forms: exit code 1.
+        (one unitig stored twice) under both locate forms: exit code 1;
+     d. at 4,641,652 bp only: search-fmin --engine dense, stream and
+        replica --device cuda (plain PyTorch, no kernel of their own):
+        every window against the analytic oracle, sampled reads against
+        the host oracle, the output byte-identical to c.'s minimizer
+        run; the engine's table build time, wall, µs/query, peak memory,
+        and on one (8192, 128) chunk the locate's ms (CUDA events),
+        device time and operations (torch.profiler), host reads, n_seg
+        against K, and each plain-torch phase's share (one JSON line per
+        engine).
 
 Prints the kernels' JSON line (launches in total and per main-path run),
-then, last, {"ok": true, "device": ...}. --kernel-only stops after
-phase 3; --sweep times the kernel across its shapes instead (one JSON
-line a row).
+the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
+stops after phase 3; --sweep times the kernel across its shapes instead
+(one JSON line a row).
 Any failure raises, and the exit code is then not 0. It imports nothing
 of JAX, of the JAX package finito_tpu or of bench.py, and fails if any
 of them was imported.
@@ -63,6 +72,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 K = 31
 GENOMES = (1_000_000, 4_641_652)
+# the other search-fmin engines, run at the 4,641,652 bp index only
+ENGINE_MODES = ("dense", "stream", "replica")
+ENGINES_AT = GENOMES[1]
 READ_LEN = 128
 N_READS = 16384  # genome reads per index: 4 CLI chunks of 4096
 MUTATE = 0.005
@@ -490,6 +502,212 @@ def locate_forms(index, codes_both: np.ndarray) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def engines_built(module):
+    """Records (engine, seconds of its construction, seconds of it in
+    build_lcs_jump_tables) of every module.DeviceQueryEngine built while
+    the block runs: the table build and upload, synchronised, and the
+    share of the LCS jump tables' two Python stack loops."""
+    import torch
+
+    from finito_tpu_torch.ops import rank24
+    from finito_tpu_torch.query import replica
+
+    built, init, jumps = [], module.DeviceQueryEngine.__init__, rank24.build_lcs_jump_tables
+    in_jumps = []
+
+    def timed_jumps(LCS):
+        t0 = time.perf_counter()
+        out = jumps(LCS)
+        in_jumps.append(time.perf_counter() - t0)
+        return out
+
+    def spy(self, *args, **kwargs):
+        in_jumps.clear()
+        t0 = time.perf_counter()
+        init(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        built.append((self, time.perf_counter() - t0, sum(in_jumps)))
+
+    module.DeviceQueryEngine.__init__ = spy
+    rank24.build_lcs_jump_tables = replica.build_lcs_jump_tables = timed_jumps
+    try:
+        yield built
+    finally:
+        module.DeviceQueryEngine.__init__ = init
+        rank24.build_lcs_jump_tables = replica.build_lcs_jump_tables = jumps
+
+
+def phase_profile(fn, phases) -> dict:
+    """One call of fn under torch.profiler (after a warm-up call): for
+    the whole call and for each record_function range named in phases,
+    the device time of the operations launched inside it (kernels and
+    copies), their count, and the range's host time (summed over the
+    range's occurrences)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    launched = [(e.time_range.start, e.time_range.end, k.duration)
+                for e in events for k in e.kernels]
+    out = {"all": {"device_ms": sum(d for _, _, d in launched) / 1e3, "launches": len(launched)}}
+    for name in phases:
+        ranges = [e.time_range for e in events if e.name == name]
+        inside = [d for s, t, d in launched if any(r.start <= s and t <= r.end for r in ranges)]
+        out[name] = {"device_ms": sum(inside) / 1e3, "launches": len(inside),
+                     "host_ms": sum(r.end - r.start for r in ranges) / 1e3}
+    return out
+
+
+# where each plain-torch phase of the new engines lives, and the record_function
+# range that names it
+PHASES = {
+    "dense": [("kmer_ranks_fixed", "finito_tpu_torch/ops/bitvec.py:kmer_ranks_fixed"),
+              ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
+    "stream": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
+               ("segment_repair.fixed", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+               ("segment_repair.straggler",
+                "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+               ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
+    "replica": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
+                ("segment_repair.fixed", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+                ("segment_repair.straggler",
+                 "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+                ("replica_tail", "finito_tpu_torch/query/replica.py:resolve_windows")],
+}
+
+
+def engine_batch(eng, codes_both: np.ndarray) -> dict:
+    """One (8192, 128) CLI chunk through a built dense/stream/replica
+    engine on the card: the locate with its deferred verify (ms by CUDA
+    events, device time and operations by torch.profiler, host reads,
+    n_seg against K), and each phase alone by CUDA events beside its
+    profiled share of the locate."""
+    import torch
+
+    from finito_tpu_torch.ops import streaming
+    from finito_tpu_torch.ops.bitvec import kmer_ranks_fixed
+    from finito_tpu_torch.query.engine import _pad_codes, _ranks_to_locations
+    from finito_tpu_torch.query.replica import resolve_windows
+
+    codes = eng._to_device(_pad_codes(codes_both))
+    B, L = codes.shape
+    reads = {"verify": 0}
+
+    def locate():
+        uid, off, verify = eng._locate_async(codes)
+        if verify is None:
+            return uid, off
+        reads["verify"] += 1
+        if verify() is not None:
+            raise AssertionError("the segment capacity overflowed at the memo's K")
+        return uid, off
+
+    verify = eng._locate_async(codes)[2]
+    if verify is not None:
+        verify()  # settles K for this shape (the CLI run's chunks already did)
+    r0 = streaming.straggler_pending.reads
+    locate()
+    torch.cuda.synchronize()
+    res = {"B": B, "L": L, "host_reads": reads["verify"] + streaming.straggler_pending.reads - r0,
+           "straggler_reads": streaming.straggler_pending.reads - r0}
+    if eng.mode != "dense":
+        K = eng._sizes[(B, L)]
+        res.update(K=K, n_seg=int(eng._segment_locate(K)(codes)[2]))
+    res["ms"] = [time_cuda(locate, reps=5, warmup=1) for _ in range(2)]
+    prof = phase_profile(locate, [name for name, _ in PHASES[eng.mode]])
+    res["device_ms"], res["launches"] = prof["all"]["device_ms"], prof["all"]["launches"]
+
+    # each phase alone on the same inputs, CUDA events
+    k = eng.k
+    alone = {}
+    if eng.mode == "dense":
+        ranks = kmer_ranks_fixed(eng.dsbwt, codes, k)
+        alone["kmer_ranks_fixed"] = time_cuda(lambda: kmer_ranks_fixed(eng.dsbwt, codes, k), 5, 1)
+    else:
+        if eng.mode == "stream":
+            tab, C, ck, jl, jr, edge = eng._stream_tables
+            n8, n_nodes, suu, aug = eng._n8, eng.dsbwt.n_nodes, None, False
+        else:
+            P = eng._replica_tables
+            tab, C, ck, jl, jr, edge, suu = (P[n] for n in ("tab", "C", "ck", "jl", "jr", "edge",
+                                                            "suu"))
+            n8, n_nodes, aug = P["n8"], P["n_nodes"], P["aug"]
+        chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
+        repair = streaming.make_segment_repair(n8, k, n_nodes, res["K"], aug=aug)
+        grids = chain(tab, C, edge, codes)
+        alone["chain_opt"] = time_cuda(lambda: chain(tab, C, edge, codes), 5, 1)
+        alone["segment_repair"] = time_cuda(
+            lambda: repair(tab, C, ck, jl, jr, suu, codes, *grids), 5, 1)
+        emit, cand, _ = repair(tab, C, ck, jl, jr, suu, codes, *grids)
+        ranks = emit[:, k - 1 :]
+        if eng.mode == "replica":
+            alone["replica_tail"] = time_cuda(lambda: resolve_windows(P, emit, cand, 0), 5, 1)
+    if eng.mode != "replica":
+        alone["ranks_to_locations"] = time_cuda(lambda: _ranks_to_locations(eng.loc_table, ranks),
+                                                5, 1)
+    res["phases"] = []
+    for name, where in PHASES[eng.mode]:
+        p = prof[name]
+        res["phases"].append({
+            "phase": name, "where": where, "launches": p["launches"], "device_ms": p["device_ms"],
+            "host_ms": p["host_ms"],
+            "events_ms": alone.get(name.split(".")[0]),
+            "host_reads": (res["straggler_reads"] if name == "segment_repair.straggler" else 0),
+        })
+    return res
+
+
+def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both) -> None:
+    """search-fmin --engine mode --device cuda through the port's CLI:
+    every window against the analytic oracle and sampled reads against
+    the host oracle (check), the output byte-identical to the minimizer
+    run's (out.txt), the engine's table build, wall, µs/query, peak
+    memory; then one CLI chunk's locate and phases (engine_batch)."""
+    import torch
+
+    from finito_tpu_torch import cli
+    from finito_tpu_torch.query import engine
+
+    opath = os.path.join(work, f"out_{mode}.txt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with engines_built(engine) as built:
+        rc, logs, wall, launches = run_counted(
+            cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--engine", mode,
+                       "--device", DEVICE])
+    if rc != 0:
+        raise RuntimeError(f"search-fmin --engine {mode} failed:\n{logs}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    (eng, build_s, jumps_s), = built
+    us_io = float(re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)[-1])
+    us_e2e = float(re.findall(r"us/query end-to-end: (\S+)", logs)[-1])
+    what = f"search-fmin --engine {mode} {genome_len} bp"
+    log(f"{what}: engine tables {build_s} s (of which build_lcs_jump_tables {jumps_s} s), "
+        f"wall {wall} s, us/query {us_io} (excluding I/O), "
+        f"{us_e2e} (end to end), peak device memory {peak} MiB, front-end kernel launches "
+        f"{launches} (this engine has no kernel of its own)")
+    check(what, opath, index.unitigs.concat, index.unitigs.ends,
+          lambda reads: [oracle_line(index, r) for r in reads])
+    with open(opath, "rb") as f, open(os.path.join(work, "out.txt"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{what}: output differs from the minimizer engine's")
+    log(f"check {what}: output byte-identical to --engine minimizer's")
+    batch = engine_batch(eng, both)
+    row = {"engine": mode, "index_bp": genome_len, "tables_s": build_s,
+           "lcs_jump_tables_s": jumps_s, "wall_s": wall,
+           "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak, "batch": batch}
+    log(json.dumps(row))
+    del eng, built
+    torch.cuda.empty_cache()
+
+
 def run_counted(main, argv, seen=None):
     """One CLI call of a main path with the front-end kernel's launch
     count set to 0 just before it and read just after. When seen is a
@@ -702,6 +920,9 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> dict:
         log(f"  {name}: {f['ms']} ms per batch, {t['windows'] / (f['ms'] / 1e3)} windows/s, "
             + ", ".join(f"{c} {f[c]}" for c in ("n_slow", "K_slow", "n_heads", "K_heads") if c in f))
     log(f"  peak device memory {t['peak_mib']} MiB")
+    if genome_len == ENGINES_AT:
+        for mode in ENGINE_MODES:
+            engine_phase(mode, genome_len, prefix, qpath, work, check, index, both)
     return launches
 
 
@@ -714,6 +935,7 @@ def main() -> int:
                    help="time the kernel across widths, group sizes, R and batch; no ok line")
     args = p.parse_args()
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -765,6 +987,7 @@ def main() -> int:
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "share_of_bound": kern["share_of_bound"], "library_ms": None,
     }]}))
+    log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

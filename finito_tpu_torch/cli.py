@@ -528,9 +528,9 @@ def search_fmin(argv: List[str]) -> int:
     p.add_argument(
         "--engine", default="minimizer",
         choices=["oracle", "dense", "stream", "minimizer", "replica"],
-        help="Query engine (default: minimizer, the device engine of the "
-        "port; 'oracle' is the host reference algorithm; dense/stream/"
-        "replica are not ported yet).",
+        help="Query engine (default: minimizer; dense, stream and replica "
+        "are the other device engines, all with identical output; "
+        "'oracle' is the host reference algorithm).",
     )
     p.add_argument("--mesh", default="1,1", metavar="DP,TP",
                    help="Device mesh; only 1,1 (one device) is ported.")
@@ -540,8 +540,6 @@ def search_fmin(argv: List[str]) -> int:
     args = p.parse_args(argv)
     if args.mesh.replace(" ", "") != "1,1":
         raise RuntimeError(f"--mesh {args.mesh} is not ported yet (only 1,1)")
-    if args.engine not in ("oracle", "minimizer"):
-        raise RuntimeError(f"--engine {args.engine} is not ported yet (minimizer or oracle)")
 
     from finito_tpu_torch.index.index import FinimizerIndex
     from finito_tpu_torch.io.fastx import SequenceReader
@@ -570,10 +568,10 @@ def search_fmin(argv: List[str]) -> int:
     sys.stderr.write("Index loaded\n")
 
     engine = None
-    if args.engine == "minimizer":
+    if args.engine != "oracle":
         from finito_tpu_torch.query.engine import DeviceQueryEngine
 
-        engine = DeviceQueryEngine(index, mode="minimizer", device=args.device)
+        engine = DeviceQueryEngine(index, mode=args.engine, device=args.device)
 
     k = index.sbwt.get_k()
     sys.stderr.write(

@@ -15,6 +15,7 @@ equality of two int32 bit patterns are already exact.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 U32 = 0xFFFFFFFF
@@ -31,6 +32,19 @@ def u32(x: torch.Tensor) -> torch.Tensor:
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 bit patterns (the low 32 bits)."""
     return x.to(torch.int32)
+
+
+def put_i32(a, device):
+    """A numpy table as an int32 tensor on device (None stays None):
+    uint32 words as their int32 bit patterns, every other integer dtype
+    (whose values fit int32) converted by value."""
+    if a is None:
+        return None
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    a = a.astype(np.int32, copy=not a.flags.writeable)  # torch wants writable
+    return torch.from_numpy(a).to(device)
 
 
 def shr32(x: torch.Tensor, s) -> torch.Tensor:

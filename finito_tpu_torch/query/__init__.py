@@ -1,1 +1,1 @@
-"""Query engines of the port (minimizer engine only)."""
+"""Query engines of the port: minimizer, dense, stream and replica."""

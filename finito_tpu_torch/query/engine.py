@@ -1,16 +1,28 @@
-"""Batched device query engine producing `search-fmin`-identical output:
-counterpart of finito_tpu/query/engine.py, minimizer mode only.
+"""Batched device query engines producing `search-fmin`-identical
+output: counterpart of finito_tpu/query/engine.py (one device, no mesh).
 
-DeviceQueryEngine uploads a FinimizerIndex's minimizer tables to one
-device and locates strand-interleaved read batches there with the locate
-of query.minimizer_engine: the per-window v1 form below a 64 MB slot
-descriptor, the run-deduplicated v2 form from there up (the JAX
-engine's rule; FINITO_MINIMIZER_V2=0/1 forces either). The forward /
-reverse-complement merge and a run-length encoding of its output run on
-the device too (merge_rle), so the host reads back O(runs), not
-O(windows). The serving split merged_pairs_flat_begin / _end keeps the
-dispatch half free of capacity checks: the slow-path overflow counter
-is read in _end (the deferred verify).
+DeviceQueryEngine uploads a FinimizerIndex's tables to one device and
+locates strand-interleaved read batches there. Modes (search-fmin
+--engine):
+
+  * "minimizer": the seed-and-verify locate of query.minimizer_engine:
+    the per-window v1 form below a 64 MB slot descriptor, the
+    run-deduplicated v2 form from there up (the JAX engine's rule;
+    FINITO_MINIMIZER_V2=0/1 forces either);
+  * "dense": a per-colex (unitig, offset) row table built at init by
+    searching every unitig window (build_position_table), then per
+    batch k fixed extension steps over all windows and one row gather;
+  * "stream": the same row table, reached through the two-phase
+    streaming ranks of ops.streaming (optimistic chain + segment repair);
+  * "replica": the compact engine of query.replica, resolving positions
+    through the index's own dictionaries (no per-node position table).
+
+The forward / reverse-complement merge and a run-length encoding of its
+output run on the device too (merge_rle), so the host reads back
+O(runs), not O(windows). The serving split merged_pairs_flat_begin /
+_end keeps the dispatch half free of capacity checks: the minimizer's
+slow-path counters and the stream and replica engines' segment counts
+are read in _end (the deferred verify; dense has none).
 """
 
 from __future__ import annotations
@@ -21,15 +33,20 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from finito_tpu_torch.index.index import FinimizerIndex, QueryResult
 from finito_tpu_torch.index.minimizer import MinimizerIndex
+from finito_tpu_torch.ops.bitvec import DeviceSBWT, kmer_ranks_fixed, search_batch_device
+from finito_tpu_torch.ops.bits import put_i32
 from finito_tpu_torch.query.minimizer_engine import (
     DeviceMinimizerIndex,
     make_minimizer_locate,
     make_minimizer_locate_v2,
 )
 from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
+
+MODES = ("minimizer", "dense", "stream", "replica")
 
 # v2 from this descriptor size up: the JAX engine's threshold
 # (finito_tpu/query/engine.py), which is also its slot-row cap
@@ -110,6 +127,67 @@ def merge_rle(uid: torch.Tensor, off: torch.Tensor, lens: torch.Tensor, K: int):
     return u0, p0, p1, rl, stats
 
 
+def build_position_table(dsbwt: DeviceSBWT, concat: np.ndarray, ends: np.ndarray,
+                         chunk: int = 1 << 20) -> torch.Tensor:
+    """pos[colex] = global end offset of the k-mer with that colex rank,
+    -1 for dummy nodes: int32 (n_nodes,) on dsbwt's device, built by
+    searching every valid unitig window (windows never cross unitig
+    boundaries) in chunks of `chunk` windows."""
+    k, n = dsbwt.k, dsbwt.n_nodes
+    dev = dsbwt.words.device
+    table = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)  # slot n: sink
+    total = int(concat.size)
+    if total < k:
+        return table[:n]
+    ends64 = np.asarray(ends, dtype=np.int64)
+    n_pos = total - k + 1
+    for s in range(0, n_pos, chunk):
+        m = min(chunk, n_pos - s)
+        starts = np.arange(s, s + m, dtype=np.int64)
+        # valid iff the window fits inside the unitig containing its start
+        uid = np.searchsorted(ends64, starts, side="right")
+        valid = starts + k <= ends64[uid]
+        win = np.lib.stride_tricks.sliding_window_view(concat[s : s + m + k - 1], k).copy()
+        win[~valid] = 255  # absent -> rank -1 -> the sink slot
+        ranks = search_batch_device(dsbwt, torch.from_numpy(win).to(dev)).to(torch.int64)
+        g_end = torch.from_numpy((starts + k - 1).astype(np.int32)).to(dev)
+        table.scatter_(0, torch.where(ranks < 0, n, ranks), g_end)
+    return table[:n]
+
+
+def build_locate_tables(pos_table: torch.Tensor, ends_dev: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-colex global end offsets -> an (n, 2) int32 row table
+    [unitig id, local offset] (-1 rows for dummy nodes), so each query
+    k-mer costs one row gather."""
+    g_end = pos_table.to(torch.int64)
+    ends = ends_dev.to(torch.int64)
+    found = g_end >= 0
+    g_start = g_end - k + 1
+    uid = torch.searchsorted(ends, g_start, right=True)
+    u_start = torch.where(uid > 0, ends[(uid - 1).clamp(0, max(ends.numel() - 1, 0))], 0)
+    off = g_start - u_start
+    return torch.stack([torch.where(found, uid, -1), torch.where(found, off, -1)],
+                       dim=1).to(torch.int32)
+
+
+def _ranks_to_locations(loc_table: torch.Tensor, ranks: torch.Tensor):
+    """colex ranks (B, W) -> ((B, W) unitig ids, (B, W) offsets), int32;
+    one (n, 2) row gather."""
+    with record_function("ranks_to_locations"):
+        found = ranks >= 0
+        rows = loc_table[torch.where(found, ranks, 0)]
+        uid, off = rows[..., 0], rows[..., 1]
+        found = found & (uid >= 0)
+        return torch.where(found, uid, -1), torch.where(found, off, -1)
+
+
+def _locate_dense(dsbwt: DeviceSBWT, loc_table: torch.Tensor, codes: torch.Tensor, k: int):
+    """(B, L) codes -> ((B, W) unitig ids, (B, W) offsets); -1 for absent."""
+    with record_function("kmer_ranks_fixed"):
+        ranks = kmer_ranks_fixed(dsbwt, codes, k)
+    return _ranks_to_locations(loc_table, ranks)
+
+
 def _pad_codes(codes: np.ndarray) -> np.ndarray:
     """Shape bucketing: L up to a multiple of 128 (at least 128), B up to
     a power of two, padding with 255 (invalid, so padded windows are
@@ -126,24 +204,80 @@ def _pad_codes(codes: np.ndarray) -> np.ndarray:
 
 class DeviceQueryEngine:
     """Batched (unitig, offset) localization over a loaded FinimizerIndex
-    on one torch device (minimizer engine; ``use_v2`` names the locate
-    form it runs)."""
+    on one torch device, in one of MODES (``use_v2`` names the minimizer
+    locate form; None in the other modes)."""
 
     def __init__(self, index: FinimizerIndex, mode: str = "minimizer", device="cuda",
-                 mindex_cache: str | None = None):
+                 mindex_cache: str | None = None, chunk: int | None = None):
         """device: where the tables live and the locate runs ("cuda",
-        "cuda:1", "cpu"). mindex_cache: optional path; the derived
-        MinimizerIndex is loaded from it when it matches this index and
-        serialized to it after a build."""
-        if mode != "minimizer":
-            raise NotImplementedError(f"engine mode {mode!r} is not ported (minimizer only)")
+        "cuda:1", "cpu"). mindex_cache (minimizer mode): optional path;
+        the derived MinimizerIndex is loaded from it when it matches this
+        index and serialized to it after a build. chunk (stream and
+        replica): the chain scan's chunk length (ops.streaming
+        chunk_reads); None = auto_chunk, 0 = whole reads."""
+        if mode not in MODES:
+            raise ValueError(f"unknown engine mode {mode!r} (one of {', '.join(MODES)})")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        self.mode = mode
         self.k = index.sbwt.get_k()
-        self._dmi = DeviceMinimizerIndex(self._minimizer_index(index, mindex_cache), self.device)
-        self.use_v2 = pick_v2(self._dmi)
-        self._sizes = {}  # (B, W) -> last sufficient (K_slow, K_heads)
+        self.use_v2 = None
+        # (B, W) -> last sufficient (K_slow, K_heads) (minimizer);
+        # (B, L) -> last sufficient segment capacity (stream, replica)
+        self._sizes = {}
+        if mode == "minimizer":
+            self._dmi = DeviceMinimizerIndex(self._minimizer_index(index, mindex_cache),
+                                             self.device)
+            self.use_v2 = pick_v2(self._dmi)
+            self._locate_async = self._locate_minimizer_async
+            return
+        self._segment_locates = {}  # K -> locate(codes) -> (uid, off, n_seg)
+        self._locate_async = self._locate_segments_async
+        if mode == "replica":
+            from finito_tpu_torch.query.replica import make_replica_locate_v2, replica_tables
+
+            self._replica_tables = tables = replica_tables(index, self.device)
+            self._make_segment_locate = lambda K: make_replica_locate_v2(
+                index, K, chunk=chunk, device=self.device, tables=tables)
+            return
+        self.dsbwt = DeviceSBWT.from_host(index.sbwt, self.device)
+        self.loc_table = build_locate_tables(
+            build_position_table(self.dsbwt, index.unitigs.concat, index.unitigs.ends),
+            put_i32(index.unitigs.ends, self.device), self.k)
+        if mode == "dense":
+            self._locate_async = lambda codes: (
+                *_locate_dense(self.dsbwt, self.loc_table, codes, self.k), None)
+            return
+        from finito_tpu_torch.ops.rank24 import (
+            build_contract_k_table,
+            build_edge_table,
+            build_lcs_jump_tables,
+            build_rank24_tables,
+        )
+        from finito_tpu_torch.ops.streaming import make_chain_stream_ranks
+
+        bit_rows = index.sbwt.bit_rows()
+        tab = build_rank24_tables(bit_rows)
+        ck = build_contract_k_table(index.LCS, self.k)
+        jl, jr = build_lcs_jump_tables(index.LCS)
+        edge = build_edge_table(bit_rows, index.sbwt.get_C_array(), ck)
+        # (tab, C, ck, jl, jr, edge): make_chain_stream_ranks's tables
+        self._stream_tables = tables = [put_i32(a, self.device)
+                                        for a in (tab, index.sbwt.get_C_array(), ck, jl, jr, edge)]
+        self._n8 = n8 = tab.shape[0] // 4
+        k, n_nodes = self.k, index.sbwt.number_of_subsets()
+
+        def make_stream(K):
+            ranks_fn = make_chain_stream_ranks(n8, k, n_nodes, K, chunk=chunk)
+
+            def locate(codes):
+                ranks, n_seg = ranks_fn(*tables, codes)
+                return (*_ranks_to_locations(self.loc_table, ranks), n_seg)
+
+            return locate
+
+        self._make_segment_locate = make_stream
 
     def _minimizer_index(self, index: FinimizerIndex, cache: str | None) -> MinimizerIndex:
         if cache and os.path.exists(cache):
@@ -170,7 +304,7 @@ class DeviceQueryEngine:
             return make_minimizer_locate_v2(self._dmi, K, KH)(codes)
         return make_minimizer_locate(self._dmi, K)(codes)
 
-    def _locate_async(self, codes: torch.Tensor):
+    def _locate_minimizer_async(self, codes: torch.Tensor):
         """Dispatch with the last-known-sufficient capacities and defer the
         overflow readback: returns (uid, off, verify). verify() reads the
         counters and, on the rare overflow, re-runs at larger capacities
@@ -198,6 +332,43 @@ class DeviceQueryEngine:
 
         return first[0], first[1], verify
 
+    def _segment_locate(self, K: int):
+        if K not in self._segment_locates:
+            self._segment_locates[K] = self._make_segment_locate(K)
+        return self._segment_locates[K]
+
+    def _locate_segments_async(self, codes: torch.Tensor):
+        """The stream and replica engines' dispatch with the deferred
+        segment-capacity check (the contract of _locate_minimizer_async):
+        K repaired segments, first max(1024, B*W/64) (stream) or
+        max(1024, B*W/16) (replica), then the last sufficient K for the
+        shape; verify() reads n_seg and re-runs at 4x K while it
+        exceeds K, up to B*W (stream) or B*L (replica), the JAX
+        engine's bounds. FINITO_MIN_K0 forces the first K, as in
+        minimizer mode."""
+        B, L = codes.shape
+        W = L - self.k + 1
+        stream = self.mode == "stream"
+        cap = B * W if stream else B * L
+        K = self._sizes.get((B, L)) or max(1024, (B * W) // (64 if stream else 16))
+        k0 = int(os.environ.get("FINITO_MIN_K0", "0"))
+        if k0 > 0:  # tests: force the overflow/verify path
+            K = k0
+            self._sizes.pop((B, L), None)
+        first = self._segment_locate(K)(codes)
+
+        def verify(K=K):
+            out = first
+            while int(out[2]) > K:
+                if K >= cap:
+                    raise AssertionError(f"segment overflow at K == {cap}")
+                K = min(cap, K * 4)
+                out = self._segment_locate(K)(codes)
+            self._sizes[(B, L)] = K
+            return None if out is first else (out[0], out[1])
+
+        return first[0], first[1], verify
+
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
         if self.device.type != "cuda":
@@ -210,7 +381,8 @@ class DeviceQueryEngine:
     def _locate_batch_deferred(self, codes: np.ndarray):
         """Bucketed dispatch with the capacity check deferred: returns
         (uid_dev, off_dev, B, W, verify); the device arrays are padded
-        and the (B, W) slice applies at readback."""
+        and the (B, W) slice applies at readback. verify is None when
+        the mode has nothing to check (dense)."""
         B, L = codes.shape
         padded = _pad_codes(codes)
         uid, off, verify = self._locate_async(self._to_device(padded))
@@ -220,7 +392,7 @@ class DeviceQueryEngine:
         """codes: (B, L) uint8 (pad with 255), L >= k. Returns (B, W) unitig
         ids and offsets, -1 where the k-mer is absent/invalid."""
         uid, off, B, W, verify = self._locate_batch_deferred(codes)
-        fixed = verify()
+        fixed = verify() if verify is not None else None
         if fixed is not None:
             uid, off = fixed
         return uid[:B, :W].cpu().numpy(), off[:B, :W].cpu().numpy()
@@ -293,9 +465,9 @@ class DeviceQueryEngine:
             z = np.zeros(0, np.int32)
             return line_lens, z, z, 0, 0
         (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d) = rest
-        fixed = verify()
+        fixed = verify() if verify is not None else None
         if fixed is not None:
-            # slow-path overflow: the optimistic locate and the merge
+            # capacity overflow: the optimistic locate and the merge
             # chained on it were invalid; redo both exactly
             uid_d, off_d = fixed
             out = merge_rle(uid_d, off_d, lens_d, K)

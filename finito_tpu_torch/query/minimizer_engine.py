@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from finito_tpu_torch.index.minimizer import MinimizerIndex
-from finito_tpu_torch.ops.bits import U32, popcount32, slot32, u32
+from finito_tpu_torch.ops.bits import U32, popcount32, put_i32, slot32, u32
 from finito_tpu_torch.ops.minimizer_front import minimizer_windows, n_words
 from finito_tpu_torch.ops.streaming import compact_mask
 from finito_tpu_torch.query.minimizer_tables import (
@@ -91,18 +91,8 @@ class DeviceMinimizerIndex:
     def _set(self, arrays, k, m, n_occ, h, device):
         self.k, self.m, self.n_occ, self.h = int(k), int(m), int(n_occ), int(h)
         self.device = torch.device(device)
-
-        def put(a):
-            if a is None:
-                return None
-            a = np.ascontiguousarray(a)
-            if a.dtype == np.uint32:
-                a = a.view(np.int32)
-            a = a.astype(np.int32, copy=not a.flags.writeable)  # torch wants writable
-            return torch.from_numpy(a).to(self.device)
-
         for name in LEAVES:
-            setattr(self, name, put(arrays[name]))
+            setattr(self, name, put_i32(arrays[name], self.device))
         # an index with no occurrence still gets one payload row, never
         # matched (uend 0), so masked-off lanes have a row to read
         self._occ_rows_safe = (

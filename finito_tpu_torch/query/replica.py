@@ -1,0 +1,244 @@
+"""The "replica" device engine: the reference's exact streaming query,
+resolving positions through the index's own dictionaries with no dense
+per-node position table; counterpart of make_replica_locate_v2 in
+finito_tpu/query/replica.py, in plain torch.
+
+FinimizerIndex::search (FinimizerIndex.hh:119-185) and
+rarest_fmin_streaming_search (common.hh:78-186) reshaped for a batch:
+
+  * phase A is ops.streaming.make_chain_opt, with (SU, Ustart) of the
+    target node packed into the edge entry (rank24.build_edge_aug_table)
+    when the index allows (n < 2^24, k <= 63);
+  * phase B is ops.streaming.make_segment_repair;
+  * the tail (resolve_windows): finimizer candidates in closed form --
+    when the interval of the scanned suffix is a singleton {x}, the
+    shortest unique suffix ending there has length SU[x] and colex x;
+    the per-window (len, colex, end)-minimum over in-window candidates;
+    the rightmost Ustart singleton as a running carry; then one row
+    gather per window resolves both dictionaries
+    (build_resolution_table) and one rank gather gives the unitig id
+    (build_uend_table).
+
+Output equals FinimizerIndex.search bit-exactly (tested against the host
+oracle and the JAX engine).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from finito_tpu_torch.ops.bits import put_i32
+from finito_tpu_torch.ops.rank24 import (
+    _NO_CAND,
+    EDGE_AUG_MIN,
+    EDGE_NODE_MASK,
+    build_contract_k_table,
+    build_edge_aug_table,
+    build_edge_table,
+    build_lcs_jump_tables,
+    build_rank24_tables,
+    build_su_ustart_table,
+    can_augment_edges,
+    rank24,
+)
+from finito_tpu_torch.ops.streaming import (
+    auto_chunk,
+    chunk_reads,
+    make_chain_opt,
+    make_segment_repair,
+    n_chunks,
+    unchunk_grid,
+)
+
+
+def rank1(tab: torch.Tensor, i):
+    """Batched rank over a single-bitvector rank24 table (both forms):
+    rank24 of its only row; returns int64."""
+    return rank24(tab, 0, 0, i)
+
+
+def build_uend_table(ends) -> np.ndarray:
+    """rank24 table over the unitig-END positions of the concatenated
+    text: uid(g_start) == #{ends <= g_start} == rank(g_start + 1) -- one
+    gather in place of a binary search over the ends."""
+    e = np.asarray(ends, dtype=np.int64)
+    bits = np.zeros(int(e[-1]) + 2 if e.size else 2, dtype=np.uint8)
+    bits[e] = 1
+    return build_rank24_tables(bits[None, :])
+
+
+def build_resolution_table(fmin, global_offsets, Ustart, ends) -> np.ndarray:
+    """(n, 2) int32 rows [ustart_gstart, fin_gend]: the branch- and
+    finimizer-dictionary lookups (ref common.hh:61-72) with their rank
+    indirections precomputed per node.
+
+      ustart_gstart[x] = ends[rank_Ustart(x) - 1] (0 for the first
+          unitig): start of the unitig whose first k-mer has colex x;
+          meaningful only at Ustart nodes, gather-safe elsewhere.
+      fin_gend[x] = global_offsets[rank_fmin(x)]: global end of the
+          canonical occurrence of the finimizer with colex x; meaningful
+          only at fmin nodes."""
+    fm = np.asarray(fmin, np.int64)
+    us = np.asarray(Ustart, np.int64)
+    e = np.asarray(ends, np.int64)
+    go = np.asarray(global_offsets, np.int64)
+    n = fm.size
+    ur = np.cumsum(us) - us  # exclusive rank
+    g = np.where(ur > 0, e[np.maximum(ur - 1, 0)] if e.size else 0, 0)
+    fr = np.cumsum(fm) - fm
+    fe = go[np.clip(fr, 0, max(go.size - 1, 0))] if go.size else np.zeros(n, np.int64)
+    return np.stack([g, fe], axis=1).astype(np.int32)
+
+
+def replica_tables(index, device="cuda") -> dict:
+    """The replica engine's device tables of one FinimizerIndex: rank24
+    rows (tab, n8), C, contract_k (ck), the LCS jump arrays (jl, jr), the
+    SU|Ustart table (suu), ends, the unitig-end rank table (uend_tab),
+    the resolution rows (res_tab) and the forward edges (edge, augmented
+    when aug)."""
+    k = index.sbwt.get_k()
+    n_nodes = index.sbwt.number_of_subsets()
+    bit_rows = index.sbwt.bit_rows()
+    C = index.sbwt.get_C_array()
+    ck_np = build_contract_k_table(index.LCS, k)
+    jl, jr = build_lcs_jump_tables(index.LCS)
+    ustart = np.asarray(index.Ustart, np.uint8)
+    aug = can_augment_edges(n_nodes, k)
+    edge = (build_edge_aug_table(bit_rows, C, ck_np, index.LCS, ustart) if aug
+            else build_edge_table(bit_rows, C, ck_np))
+    tab = build_rank24_tables(bit_rows)
+    arrays = {
+        "tab": tab, "C": C, "ck": ck_np, "jl": jl, "jr": jr,
+        "suu": build_su_ustart_table(index.LCS, ustart),
+        "ends": index.unitigs.ends,
+        "uend_tab": build_uend_table(index.unitigs.ends),
+        "res_tab": build_resolution_table(np.asarray(index.fmin, np.uint8),
+                                          index.global_offsets, ustart, index.unitigs.ends),
+        "edge": edge,
+    }
+    P = {name: put_i32(a, device) for name, a in arrays.items()}
+    P.update(n8=tab.shape[0] // 4, k=k, n_nodes=n_nodes, aug=aug)
+    return P
+
+
+def resolve_windows(P: dict, emit, cand, chunk: int = 0):
+    """The replica tail: repaired (B, L) emit and cand grids -> (B, W)
+    int32 (uid, off), -1 where absent. chunk is the chain's chunk length
+    (0 = whole reads): with augmented edges, raw candidates occur only at
+    the read head j < k and at each chunk's seeding close."""
+    k, aug, suu = P["k"], P["aug"], P["suu"]
+    B, L = emit.shape
+    W = L - k + 1
+    dev = emit.device
+    ranks = emit[:, k - 1 :]  # (B, W)
+    found = ranks >= 0
+    cand = cand.to(torch.int64)
+
+    # candidate grids: length, colex, Ustart flag per position
+    if aug:
+        augm = cand >= EDGE_AUG_MIN
+        x = torch.where(augm, cand & EDGE_NODE_MASK, cand)
+        cl = torch.where(augm, cand >> 25, _NO_CAND)
+        uf = augm & (((cand >> 24) & 1) == 1)
+        cols = list(range(min(k, L)))
+        if k <= chunk < L:
+            S = chunk - k + 1
+            cols += [s * S + k - 1 for s in range(1, n_chunks(L, k, chunk))
+                     if s * S + k - 1 < L]
+        cidx = torch.tensor(sorted(set(cols)), dtype=torch.int64, device=dev)
+        sl = cand[:, cidx]
+        raw = (sl >= 0) & (sl < EDGE_AUG_MIN)
+        sw = suu[torch.where(raw, sl, 0)].to(torch.int64)
+        cl[:, cidx] = torch.where(raw, sw & 0xFF, cl[:, cidx])
+        uf[:, cidx] = uf[:, cidx] | (raw & (((sw >> 8) & 1) == 1))
+    else:
+        x = cand
+        sw = suu[torch.where(cand >= 0, cand, 0)].to(torch.int64)
+        cl = torch.where(cand >= 0, sw & 0xFF, _NO_CAND)
+        uf = (cand >= 0) & (((sw >> 8) & 1) == 1)
+    cl = torch.where(cand >= 0, cl, _NO_CAND)
+
+    # rightmost Ustart singleton carry: the JAX "last non-null"
+    # associative scan; its positions increase along a row, so it is a
+    # running max of the positions and a gather of their nodes
+    jpos = torch.arange(L, device=dev)[None, :]
+    up = torch.cummax(torch.where(uf, jpos, -1), dim=1).values
+    ux = torch.gather(torch.where(uf, x, 0), 1, up.clamp(min=0))
+
+    cc = torch.where(cand >= 0, x, 0)
+    fin_len = torch.full((B, W), _NO_CAND, dtype=torch.int64, device=dev)
+    fin_colex = torch.zeros_like(fin_len)
+    fin_r = torch.zeros_like(fin_len)
+    for r in range(k):
+        cl_r = cl[:, r : r + W]
+        cc_r = cc[:, r : r + W]
+        better = (cl_r <= r + 1) & (
+            (cl_r < fin_len) | ((cl_r == fin_len) & (cc_r < fin_colex))
+        )
+        fin_len = torch.where(better, cl_r, fin_len)
+        fin_colex = torch.where(better, cc_r, fin_colex)
+        fin_r = torch.where(better, r, fin_r)
+
+    up_w = up[:, k - 1 :]
+    ux_w = ux[:, k - 1 :]
+    ws = torch.arange(W, device=dev)[None, :]
+    use_branch = found & (up_w >= ws + fin_r)
+
+    # both dictionaries resolve through one precomputed row gather
+    ridx = torch.where(use_branch, ux_w, torch.where(found, fin_colex, 0))
+    rows = P["res_tab"][ridx].to(torch.int64)
+    g_end_branch = rows[..., 0] + (k - 1) + ((ws + k - 1) - up_w)
+    g_end_fin = rows[..., 1] + ((k - 1) - fin_r)
+    g_end = torch.where(use_branch, g_end_branch, g_end_fin)
+    g_start = g_end - k + 1
+    # uid by one rank gather on the unitig-end bitvector; the clamps only
+    # keep a masked-off lane's index in its table
+    ends = P["ends"]
+    n_bits = 8 * P["uend_tab"].shape[0] - 1
+    uid = rank1(P["uend_tab"], (torch.where(found, g_start, 0) + 1).clamp(0, n_bits))
+    u_start2 = torch.where(uid > 0, ends[(uid - 1).clamp(0, ends.numel() - 1)], 0)
+    off = g_start - u_start2
+    return (torch.where(found, uid, -1).to(torch.int32),
+            torch.where(found, off, -1).to(torch.int32))
+
+
+def make_replica_locate_v2(index, K_seg: int = 4096, chunk: int | None = None,
+                           device="cuda", tables: dict | None = None):
+    """Two-phase exact replica: optimistic chain + segment repair, then
+    the dictionary tail. Returns locate(codes) -> (uid, off, n_seg) for
+    (B, L) uint8 codes (tensor on the tables' device, or numpy); results
+    are valid only when n_seg <= K_seg (the caller re-runs larger).
+    tables: replica_tables(index, device), built here when None (an
+    engine passes its own so that a re-run at another K rebuilds
+    nothing).
+
+    chunk (None = auto_chunk, 0/>= L = off) splits each read into
+    k-1-overlapped chunks scanned as extra lanes (chunk_reads); the
+    output is the same."""
+    P = replica_tables(index, device) if tables is None else tables
+    k, n8, n_nodes, aug = P["k"], P["n8"], P["n_nodes"], P["aug"]
+    chain = make_chain_opt(n8, k, n_nodes, aug=aug)
+    repair = make_segment_repair(n8, k, n_nodes, K_seg, aug=aug)
+
+    def locate(codes):
+        if isinstance(codes, np.ndarray):
+            codes = torch.from_numpy(codes).to(P["tab"].device)
+        B, L = codes.shape
+        cc_len = auto_chunk(k, B, L) if chunk is None else chunk
+        tab, C, edge = P["tab"], P["C"], P["edge"]
+        if k <= cc_len < L:
+            emit, cand, untrusted = (
+                unchunk_grid(g, B, L, k, cc_len)
+                for g in chain(tab, C, edge, chunk_reads(codes, k, cc_len))
+            )
+        else:
+            emit, cand, untrusted = chain(tab, C, edge, codes)
+        emit, cand, n_seg = repair(tab, C, P["ck"], P["jl"], P["jr"], P["suu"], codes,
+                                   emit, cand, untrusted)
+        with record_function("replica_tail"):
+            uid, off = resolve_windows(P, emit, cand, cc_len)
+        return uid, off, n_seg
+
+    return locate

@@ -50,11 +50,11 @@ def _search(main, prefix, query, out, extra=()):
     return got
 
 
-def _assert_same_run(prefix, query, tmp_path):
+def _assert_same_run(prefix, query, tmp_path, engine="minimizer"):
     j_out, j_stats, j_txt = _search(jax_cli.main, prefix, query, tmp_path / "j.txt",
-                                    ["--engine", "minimizer"])
+                                    ["--engine", engine])
     p_out, p_stats, p_txt = _search(port_cli.main, prefix, query, tmp_path / "p.txt",
-                                    ["--device", "cpu"])
+                                    ["--device", "cpu", "--engine", engine])
     assert p_out == j_out
     assert p_stats == j_stats
     # ",<us e2e>,<bytes>,<bits/kmer>\n,<kmers>\n": all but the timing equal
@@ -127,11 +127,53 @@ def test_random_dspss_k31(tmp_path):
     assert out.count(b"\n") == len(reads)
 
 
+@pytest.mark.parametrize("engine", ["dense", "stream", "replica"])
+def test_new_engines_random_dspss_k11(tmp_path, engine):
+    """search-fmin --engine dense/stream/replica: the JAX CLI's bytes, on
+    mutated, chimeric, short and N reads."""
+    rng = np.random.default_rng(11)
+    k = 11
+    unitigs = gen_dspss(rng, 12, 30, 90, k)
+    prefix = _build(tmp_path, unitigs, k)
+    genome = "".join(unitigs)
+    reads = []
+    for i in range(30):
+        s = int(rng.integers(0, len(genome) - 70))
+        r = list(genome[s : s + int(rng.integers(k, 70))])
+        for _ in range(i % 4):
+            p = int(rng.integers(0, len(r)))
+            r[p] = "ACGT"[("ACGT".index(r[p]) + 1) % 4]
+        reads.append("".join(r))
+    reads += [unitigs[0][-(k + 3):] + unitigs[1][: k + 3], "ACGT", "ACGTN" * 6, genome[:150]]
+    q = tmp_path / "q.fna"
+    write_fasta(q, reads)
+    out = _assert_same_run(prefix, q, tmp_path, engine)
+    assert out.count(b"\n") == len(reads)
+    assert out == _assert_same_run(prefix, q, tmp_path, "minimizer")
+
+
+def test_engines_default_to_cuda(tmp_path, capsys):
+    """Without --device every device engine asks for the card; with no
+    card the run fails (exit code 1) and writes no output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    prefix = _build(tmp_path, PAPER_UNITIGS, 4)
+    q = tmp_path / "q.fna"
+    write_fasta(q, ["AAGTAA"])
+    for engine in ("minimizer", "dense", "stream", "replica"):
+        out = tmp_path / f"{engine}.txt"
+        capsys.readouterr()
+        assert port_cli.main(["search-fmin", "-o", str(out), "-i", prefix, "-q", str(q),
+                              "--engine", engine]) == 1
+        assert "CUDA is not available" in capsys.readouterr().err
+        assert not out.exists()
+
+
 def test_unported_flags_fail(tmp_path, capsys):
     prefix = _build(tmp_path, PAPER_UNITIGS, 4)
     q = tmp_path / "q.fna"
     write_fasta(q, ["AAGTAA"])
-    for extra in (["--mesh", "2,1"], ["--engine", "dense"]):
+    for extra in (["--mesh", "2,1"],):
         assert port_cli.main(["search-fmin", "-i", prefix, "-q", str(q), "--device", "cpu",
                               *extra]) == 1
     # kmer-mapper without a subcommand: its usage, exit code 1

@@ -213,9 +213,108 @@ def test_mindex_cache_fresh_reused_stale(fixture, tmp_path, monkeypatch):
 
 
 def test_unported_modes_raise(fixture):
+    """Every mode of the JAX engine is ported; an unknown one raises."""
     index = fixture[0]
-    with pytest.raises(NotImplementedError):
-        DeviceQueryEngine(index, mode="dense", device="cpu")
+    assert port_engine.MODES == ("minimizer", "dense", "stream", "replica")
+    with pytest.raises(ValueError, match="unknown engine mode"):
+        DeviceQueryEngine(index, mode="oracle", device="cpu")
+
+
+NEW_MODES = ["dense", "stream", "replica"]
+
+
+@pytest.fixture(scope="module")
+def jax_merged(fixture):
+    """mode -> the JAX engine's merged_pairs_flat of the fixture's reads"""
+    _, _, reads, _, jindex = fixture
+    return {mode: JaxEngine(jindex, mode=mode).merged_pairs_flat(reads) for mode in NEW_MODES}
+
+
+def _assert_same_streams(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_new_modes_equal_jax_engine_and_oracle(fixture, jax_merged, mode):
+    """dense, stream and replica: merged_pairs_flat equal to the JAX
+    engine's, process_reads equal to the host oracle."""
+    index, _, reads, _, jindex = fixture
+    engine = DeviceQueryEngine(index, mode=mode, device="cpu")
+    assert engine.use_v2 is None
+    _assert_same_streams(engine.merged_pairs_flat(reads), jax_merged[mode])
+    for read, (f, r) in zip(reads, engine.process_reads(reads)):
+        of = jindex.search(read)
+        orr = jindex.search(reverse_complement(read))
+        assert (f.local_offsets, f.n_found) == (of.local_offsets, of.n_found), (mode, read)
+        assert (r.local_offsets, r.n_found) == (orr.local_offsets, orr.n_found), (mode, read)
+    if mode == "dense":  # no capacity to check: no deferred verify
+        _, _, both = engine._encode_both_strands(reads)
+        assert engine._locate_batch_deferred(both)[4] is None
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_new_modes_default_to_cuda(fixture, mode, monkeypatch):
+    """The default device is the card: without one the engine raises
+    before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from finito_tpu_torch.ops import rank24 as pr24
+
+    def no_build(*_args):
+        raise AssertionError("tables built before the device check")
+
+    monkeypatch.setattr(pr24, "build_rank24_tables", no_build)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceQueryEngine(fixture[0], mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["stream", "replica"])
+def test_new_modes_wide_rank_form(fixture, jax_merged, monkeypatch, mode):
+    """RANK24_MAX_NODES = 1 forces the wide rank tables (and plain edges
+    in replica mode): the same streams as the JAX engine's."""
+    from finito_tpu_torch.ops import rank24 as pr24
+    from finito_tpu_torch.query import replica as prep
+
+    index, _, reads, _, _ = fixture
+    built = []
+
+    def spy(bit_rows):
+        built.append(orig(bit_rows))
+        return built[-1]
+
+    orig = pr24.build_rank24_tables
+    monkeypatch.setattr(pr24, "RANK24_MAX_NODES", 1)
+    monkeypatch.setattr(pr24, "build_rank24_tables", spy)
+    monkeypatch.setattr(prep, "build_rank24_tables", spy)
+    engine = DeviceQueryEngine(index, mode=mode, device="cpu")
+    assert built and all(t.ndim == 2 for t in built)
+    _assert_same_streams(engine.merged_pairs_flat(reads), jax_merged[mode])
+
+
+@pytest.mark.parametrize("mode", ["stream", "replica"])
+def test_new_modes_capacity_rerun(fixture, jax_merged, monkeypatch, mode):
+    """FINITO_MIN_K0=1 makes the first segment capacity 1: the deferred
+    verify re-runs at 4x K until n_seg fits and gives the exact answer;
+    the memo keeps the grown K per (B, L)."""
+    index, _, reads, _, _ = fixture
+    engine = DeviceQueryEngine(index, mode=mode, device="cpu")
+    monkeypatch.setenv("FINITO_MIN_K0", "1")
+    assert engine.merged_pairs_flat_begin(reads)[1][6]() is not None  # verify re-ran
+    got = engine.merged_pairs_flat(reads)
+    monkeypatch.delenv("FINITO_MIN_K0")
+    (_B, _L), K = next(iter(engine._sizes.items()))
+    assert K >= 4
+    _assert_same_streams(got, jax_merged[mode])
+
+
+@pytest.mark.parametrize("mode", ["stream", "replica"])
+def test_new_modes_chunked_scan(fixture, jax_merged, mode):
+    """chunk=9 splits every read into k-1-overlapped chunks: the same
+    streams."""
+    index, _, reads, _, _ = fixture
+    engine = DeviceQueryEngine(index, mode=mode, device="cpu", chunk=9)
+    _assert_same_streams(engine.merged_pairs_flat(reads), jax_merged[mode])
 
 
 def test_cuda_without_card_raises(fixture):
@@ -235,3 +334,14 @@ def test_engine_on_card_equals_cpu(fixture, monkeypatch, v2):
     got = DeviceQueryEngine(index, device="cuda").merged_pairs_flat(reads)
     for a, b in zip(got, engine.merged_pairs_flat(reads)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_new_modes_on_card_equal_cpu(fixture, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    index, _, reads, _, _ = fixture
+    got = DeviceQueryEngine(index, mode=mode, device="cuda").merged_pairs_flat(reads)
+    want = DeviceQueryEngine(index, mode=mode, device="cpu").merged_pairs_flat(reads)
+    _assert_same_streams(got, want)

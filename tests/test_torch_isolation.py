@@ -1,7 +1,8 @@
 """The port shares no code with the JAX package: with finito_tpu, jax,
 jaxlib and bench.py blocked, every module of finito_tpu_torch imports,
 and the whole tiny pipeline runs through ``python -m
-finito_tpu_torch.cli`` on the CPU, each command with exit code 0."""
+finito_tpu_torch.cli`` on the CPU, each command with exit code 0
+(search-fmin with the minimizer and the stream engine, byte-identical)."""
 
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ BLOCKED = textwrap.dedent("""
     cli("convert-sbwt", "-i", p("a.sbwt"), "-o", p("b.sbwt"), "--to", "finito")
     cli("build-fmin", "-i", p("x.sbwt"), "-u", p("f.fna"), "-o", p("idx"))
     cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("out.txt"), "--device", "cpu")
+    cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("stream.txt"),
+        "--engine", "stream", "--device", "cpu")
     cli("kmer-mapper", "build", "-u", p("f.fna"), "-k", "11", "-o", p("km"))
     cli("kmer-mapper", "query", "-i", p("km"), "-q", p("reads.fna"), "-r", "-o", p("km.txt"),
         "--device", "cpu")
@@ -66,6 +69,7 @@ BLOCKED = textwrap.dedent("""
 
     out = open(p("out.txt")).read().splitlines()
     assert len(out) == len(reads) and out[-1] == "" and "(-1,-1)" not in out[0], out[:2]
+    assert open(p("stream.txt"), "rb").read() == open(p("out.txt"), "rb").read()
     assert open(p("km.txt")).read() == open(p("kmh.txt")).read()
     assert open(p("b.sbwt"), "rb").read() == open(p("x.sbwt"), "rb").read()
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
