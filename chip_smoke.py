@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths, ``search-fmin`` (every --engine) and
-``kmer-mapper query``, on one device through the port's CLI, at
-realistic index sizes, and checks every answer. Phases, one line or
-more each:
+Drives the port's main paths, ``search-fmin`` (every --engine, and the
+minimizer engine on (dp, tp) meshes) and ``kmer-mapper query``, through
+the port's CLI, at realistic index sizes, and checks every answer.
+Phases, one line or more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the CUDA kernels (nvcc) and the host library (g++)
@@ -43,7 +43,22 @@ more each:
         and on one (8192, 128) chunk the locate's ms (CUDA events),
         device time and operations (torch.profiler), host reads, n_seg
         against K, and each plain-torch phase's share (one JSON line per
-        engine).
+        engine);
+     e. at 4,641,652 bp only, the mesh: for (dp, tp) in (1, 2), (2, 2),
+        (1, 4) a DeviceQueryEngine(mesh=(dp, tp)) whose dp * tp devices
+        are all cuda:0 (one card), driven by search-fmin's own serving
+        loop over the query file: every window against the analytic
+        oracle, probe reads against the host oracle, the output
+        byte-identical to a.'s, the kernel bit for bit on every input the
+        run gave it (dp * tp launches a chunk); one JSON line per mesh
+        (ShardedMinimizerIndex build, wall, µs/query, peak memory, and on
+        one (8192, 128) chunk ms, device time and operations, host reads,
+        n_slow against K). search-fmin --mesh dp,tp --device cuda through
+        the CLI only where dp * tp cards are visible;
+     f. the LCS array on the host, on the card (lcs_array_device) and over
+        4 shards on cuda:0 (sharded_lcs_fn): all equal, seconds of each;
+     g. run_distributed_queries in 2 processes on cuda:0 joined by gloo:
+        the merged file byte-identical to the single run and to a.'s.
 
 Prints the kernels' JSON line (launches in total and per main-path run),
 the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
@@ -92,6 +107,10 @@ LARGE_KERNEL_CASE = (4_190_000, 256, 31, 16)
 MAIN_SHAPE = (8192, 128, 31, 16)  # one CLI chunk: 4096 reads, both strands
 # top-level modules the port must never import
 FOREIGN = ("finito_tpu", "bench", "jax", "jaxlib")
+# (dp, tp) meshes of the 4,641,652 bp index, every device cuda:0; dp <= 4
+# because the CLI's last chunk holds 2 reads (B = 4, ROADMAP C7)
+MESHES = ((1, 2), (2, 2), (1, 4))
+LCS_SHARDS = 4  # sharded_lcs_fn's mesh, every device cuda:0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
@@ -717,6 +736,7 @@ def run_counted(main, argv, seen=None):
     import torch
 
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.parallel import mesh
     from finito_tpu_torch.query import minimizer_engine
 
     def recorded(codes, k, m):
@@ -727,7 +747,9 @@ def run_counted(main, argv, seen=None):
     torch.cuda.synchronize()
     minimizer_windows.launches = 0
     if seen is not None:
-        minimizer_engine.minimizer_windows = recorded
+        # the callers of the front end: the single-device locates and the
+        # mesh's shards
+        minimizer_engine.minimizer_windows = mesh.minimizer_windows = recorded
     err = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -736,7 +758,7 @@ def run_counted(main, argv, seen=None):
     except SystemExit as e:
         rc = e.code
     finally:
-        minimizer_engine.minimizer_windows = minimizer_windows
+        minimizer_engine.minimizer_windows = mesh.minimizer_windows = minimizer_windows
     wall = time.perf_counter() - t0
     return rc, err.getvalue(), wall, minimizer_windows.launches
 
@@ -869,9 +891,273 @@ def kmer_mapper_phase(genome_len, fna, qpath, work, check, n_win) -> int:
     return launches
 
 
-def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> dict:
+@contextlib.contextmanager
+def sharded_builds(mesh):
+    """Records the seconds of every ShardedMinimizerIndex.build while the
+    block runs."""
+    times, build = [], mesh.ShardedMinimizerIndex.build
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = build(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    mesh.ShardedMinimizerIndex.build = staticmethod(timed)
+    try:
+        yield times
+    finally:
+        mesh.ShardedMinimizerIndex.build = staticmethod(build)
+
+
+def mesh_batch(eng, codes_both: np.ndarray) -> dict:
+    """One (8192, 128) CLI chunk through a mesh engine's locate with its
+    deferred verify: ms by CUDA events, device time and operations by
+    torch.profiler (whole and per record_function range), the front-end
+    launches and host reads of one locate, n_slow against the first K."""
+    import torch
+
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.query.engine import _pad_codes
+
+    codes = eng._to_device(_pad_codes(codes_both))
+    B, L = codes.shape
+    K = max(256, B * (L - eng.k + 1) // 32)  # the engine's first capacity
+    reruns = []
+
+    def locate():
+        uid, off, verify = eng._locate_async(codes)
+        reruns.append(verify() is not None)
+        return uid, off
+
+    def shard_reads():
+        return sum(fn.host_reads for fn in eng._mesh_locates.values())
+
+    locate()
+    torch.cuda.synchronize()
+    r0, l0 = shard_reads(), minimizer_windows.launches
+    locate()
+    torch.cuda.synchronize()
+    # the shards' trip-count reads, and the verify's one read of n_slow
+    res = {"B": B, "L": L, "host_reads": shard_reads() - r0 + 1,
+           "front_end_launches": minimizer_windows.launches - l0,
+           "K": K, "n_slow": int(eng._mesh_locate(K)(codes)[2])}
+    res["ms"] = [time_cuda(locate, reps=5, warmup=1) for _ in range(2)]
+    prof = phase_profile(locate, ["mesh_shards", "mesh_combine"])
+    res["device_ms"], res["launches"] = prof["all"]["device_ms"], prof["all"]["launches"]
+    res["phases"] = {name: prof[name] for name in ("mesh_shards", "mesh_combine")}
+    res["reruns"] = sum(reruns)
+    return res
+
+
+def mesh_phase(genome_len, prefix, qpath, work, check, index, both) -> dict:
+    """search-fmin's own serving loop (cli._run_queries_streaming) over a
+    DeviceQueryEngine on each (dp, tp) mesh of MESHES, every device of
+    the mesh cuda:0: every window against the analytic oracle and probe
+    reads against the host oracle (check), the output byte-identical to
+    the single-device minimizer run's (out.txt), the kernel bit for bit
+    on every input the run gave it; the sharded index's build time,
+    wall, µs/query, peak memory and one chunk's locate (mesh_batch), one
+    JSON line per mesh. Where dp * tp cards are visible also search-fmin
+    --mesh dp,tp --device cuda through the CLI. Returns the front-end
+    launches of each mesh's run."""
+    import torch
+
+    from finito_tpu_torch import cli
+    from finito_tpu_torch.io.fastx import SequenceReader
+    from finito_tpu_torch.parallel import mesh
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+
+    with open(os.path.join(work, "out.txt"), "rb") as f:
+        single = f.read()
+    launches = {}
+    for dp, tp in MESHES:
+        n, cfg = dp * tp, f"{dp},{tp}"
+        what = f"search-fmin --mesh {cfg} {genome_len} bp"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with sharded_builds(mesh) as builds:
+            eng = DeviceQueryEngine(index, mode="minimizer", mesh=(dp, tp),
+                                    devices=[DEVICE + ":0"] * n)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        opath = os.path.join(work, f"out_mesh_{dp}_{tp}.txt")
+        served = []
+
+        def serve(_argv):
+            with SequenceReader(qpath) as reader, open(opath, "w") as out:
+                served.append(cli._run_queries_streaming(
+                    reader, out, index, os.path.join(work, f"mesh_{dp}_{tp}.stats"), eng))
+            return 0
+
+        seen = []
+        rc, logs, wall, n_launch = run_counted(serve, [], seen)
+        if rc != 0:
+            raise RuntimeError(f"{what} failed:\n{logs}")
+        us_io = float(re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)[-1])
+        log(f"{what} ({n} shards, all on {DEVICE}:0): ShardedMinimizerIndex.build {builds[0]} s "
+            f"(h={eng._sharded.h}), engine {engine_s} s, serving loop wall {wall} s, "
+            f"{served[0]} queries, us/query {us_io} (excluding I/O), front-end kernel launches "
+            f"{n_launch}")
+        if n_launch <= 0 or n_launch % n:
+            raise AssertionError(f"{what}: {n_launch} front-end launches, not a multiple of {n} shards")
+        check_inputs(what, seen, n_launch)
+        check(what, opath, index.unitigs.concat, index.unitigs.ends,
+              lambda reads: [oracle_line(index, r) for r in reads])
+        with open(opath, "rb") as f:
+            if f.read() != single:
+                raise AssertionError(f"{what}: output differs from the single-device run's")
+        log(f"check {what}: output byte-identical to the single-device minimizer run's")
+        launches[cfg] = n_launch
+        if torch.cuda.device_count() >= n:
+            cpath = os.path.join(work, f"out_cli_mesh_{dp}_{tp}.txt")
+            rc, logs, cwall, cl = run_counted(
+                cli.main, ["search-fmin", "-o", cpath, "-i", prefix, "-q", qpath,
+                           "--mesh", cfg, "--device", DEVICE])
+            with open(cpath, "rb") as f:
+                if rc != 0 or f.read() != single:
+                    raise AssertionError(f"search-fmin --mesh {cfg} --device {DEVICE}: exit {rc} "
+                                         f"or output differs:\n{logs}")
+            cli_form = (f"search-fmin --mesh {cfg} --device {DEVICE} on {n} cards: bytes equal, "
+                        f"wall {cwall} s, {cl} front-end launches")
+        else:
+            cli_form = (f"not run: {torch.cuda.device_count()} card(s) visible, search-fmin "
+                        f"--mesh {cfg} --device {DEVICE} needs {n}")
+        log(f"{what}: the CLI form: {cli_form}")
+        batch = mesh_batch(eng, both)
+        log(json.dumps({
+            "mesh": cfg, "shards": n, "devices": f"{DEVICE}:0 x{n}", "index_bp": genome_len,
+            "sharded_build_s": builds[0], "engine_s": engine_s, "h": eng._sharded.h,
+            "desc_mib_per_shard": eng._sharded.desc[0].nbytes / 2**20,
+            "serving_wall_s": wall, "queries": served[0], "us_query_wall": wall / served[0] * 1e6,
+            "us_query_excl_io": us_io, "front_end_launches": n_launch, "cli_form": cli_form,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "batch": batch}))
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def lcs_phase(genome_len: int, index) -> None:
+    """The LCS array of the index on the host (sbwt.lcs_array), on the
+    card (ops.lcs_device) and sharded over a mesh of LCS_SHARDS x cuda:0
+    (parallel.mesh.sharded_lcs_fn): all equal to the index's own LCS;
+    seconds of each, twice for the device forms."""
+    import torch
+
+    from finito_tpu_torch.ops.lcs_device import lcs_array_device
+    from finito_tpu_torch.parallel.mesh import make_mesh, sharded_lcs_fn
+    from finito_tpu_torch.sbwt.lcs import lcs_array
+
+    sbwt = index.sbwt
+    t0 = time.perf_counter()
+    host = lcs_array(sbwt)
+    row = {"lcs": genome_len, "nodes": sbwt.number_of_subsets(), "k": sbwt.get_k(),
+           "host_s": time.perf_counter() - t0, "device_s": [], "sharded_s": [],
+           "shards": LCS_SHARDS}
+    if not np.array_equal(host, np.asarray(index.LCS)):
+        raise AssertionError("lcs_array differs from the index's LCS file")
+    mesh = make_mesh(LCS_SHARDS, tp=1, devices=[DEVICE + ":0"] * LCS_SHARDS)
+    for name, fn in (("device_s", lambda: lcs_array_device(sbwt, DEVICE)),
+                     ("sharded_s", lambda: sharded_lcs_fn(mesh, sbwt))):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()  # host int64: the readback synchronises
+            row[name].append(time.perf_counter() - t0)
+            if not np.array_equal(got, host):
+                raise AssertionError(f"LCS {name[:-2]} differs from the host lcs_array")
+    log(f"check LCS {genome_len} bp: lcs_array_device and sharded_lcs_fn ({LCS_SHARDS} shards) "
+        f"equal the host lcs_array over {row['nodes']} nodes")
+    log(json.dumps(row))
+
+
+def dist_worker(argv) -> int:
+    """One rank of dist_phase: join the gloo group, run this rank's read
+    slice on cuda:0, write its part; rank 0 merges after the barrier."""
+    import torch.distributed as tdist
+
+    from finito_tpu_torch.index.index import FinimizerIndex
+    from finito_tpu_torch.parallel import distributed as dist
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+
+    pid, nproc, port, prefix, qpath, out = argv
+    pid, nproc = int(pid), int(nproc)
+    t0 = time.perf_counter()
+    if dist.init_distributed(f"localhost:{port}", nproc, pid) != (pid, nproc):
+        raise AssertionError("the process group has another rank or size")
+    engine = DeviceQueryEngine(FinimizerIndex.load(prefix), device=DEVICE + ":0")
+    reads = read_reads(qpath)
+    t1 = time.perf_counter()
+    dist.run_distributed_queries(engine, reads, out, pid, nproc, barrier=True)
+    if not os.path.exists(out):
+        raise AssertionError("the merged file is missing after the barrier")
+    log(json.dumps({"rank": pid, "world": nproc, "backend": tdist.get_backend(),
+                    "reads": len(dist.split_for_process(reads, pid, nproc)),
+                    "setup_s": t1 - t0, "queries_s": time.perf_counter() - t1}))
+    tdist.destroy_process_group()
+    return 0
+
+
+def read_reads(path: str) -> list:
+    from finito_tpu_torch.io.fastx import SequenceReader
+
+    with SequenceReader(path) as reader:
+        return [bytes(seq) for _h, seq in reader]
+
+
+def dist_phase(genome_len: int, prefix: str, qpath: str, work: str, index) -> None:
+    """run_distributed_queries in 2 processes (this script with
+    --dist-worker), each on cuda:0, joined by a gloo group on localhost:
+    the merged file byte-identical to the single-process run and to the
+    CLI's output (out.txt)."""
+    import socket
+
+    from finito_tpu_torch.parallel import distributed as dist
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_multi = os.path.join(work, "dist.txt")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker", str(pid),
+                               "2", str(port), prefix, qpath, out_multi],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"dist worker exit {p.returncode}:\n{se.decode()[-3000:]}")
+    ranks = [json.loads(so.decode().strip().splitlines()[-1]) for so, _ in outs]
+    single = os.path.join(work, "dist_single.txt")
+    t0 = time.perf_counter()
+    dist.run_distributed_queries(DeviceQueryEngine(index, device=DEVICE), read_reads(qpath),
+                                 single, 0, 1)
+    single_s = time.perf_counter() - t0
+    with open(out_multi, "rb") as f, open(single, "rb") as g, \
+            open(os.path.join(work, "out.txt"), "rb") as h:
+        multi = f.read()
+        if multi != g.read() or multi != h.read():
+            raise AssertionError("the 2-process run differs from the single run or the CLI's output")
+    log(f"check run_distributed_queries {genome_len} bp, 2 processes on {DEVICE}:0 (gloo): merged "
+        "file byte-identical to the single-process run and to search-fmin's output")
+    log(json.dumps({"distributed": genome_len, "processes": 2, "wall_s": wall,
+                    "single_s": single_s, "ranks": ranks}))
+
+
+def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
     """One index size end to end; returns the front-end kernel launches
-    of each of its main-path runs (search-fmin and kmer-mapper query)."""
+    of each of its main-path runs (search-fmin and kmer-mapper query),
+    and of each mesh's search-fmin run."""
     from finito_tpu_torch.io.seqdb import decode_seq
 
     genome, cuts, prefix = build_index(genome_len, seed, work)
@@ -920,10 +1206,15 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> dict:
         log(f"  {name}: {f['ms']} ms per batch, {t['windows'] / (f['ms'] / 1e3)} windows/s, "
             + ", ".join(f"{c} {f[c]}" for c in ("n_slow", "K_slow", "n_heads", "K_heads") if c in f))
     log(f"  peak device memory {t['peak_mib']} MiB")
+    mesh_launches = {}
     if genome_len == ENGINES_AT:
         for mode in ENGINE_MODES:
             engine_phase(mode, genome_len, prefix, qpath, work, check, index, both)
-    return launches
+        mesh_launches = mesh_phase(genome_len, prefix, qpath, work, check, index, both)
+        launches["search-fmin --mesh"] = sum(mesh_launches.values())
+        lcs_phase(genome_len, index)
+        dist_phase(genome_len, prefix, qpath, work, index)
+    return launches, mesh_launches
 
 
 def main() -> int:
@@ -933,6 +1224,8 @@ def main() -> int:
                    help="stop after the kernel phase (its check and times); prints no ok line")
     p.add_argument("--sweep", action="store_true",
                    help="time the kernel across widths, group sizes, R and batch; no ok line")
+    p.add_argument("--dist-worker", nargs=6, help=argparse.SUPPRESS,
+                   metavar=("PID", "NPROC", "PORT", "PREFIX", "QUERIES", "OUT"))
     args = p.parse_args()
 
     t_start = time.perf_counter()
@@ -940,6 +1233,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card")
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     card = gpu_name_and_power()
     log(f"device: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} visible")
@@ -967,12 +1262,14 @@ def main() -> int:
     if args.kernel_only:
         log(json.dumps({"kernel_only": kern, "card": card}))
         return 0
-    launches = {}
+    launches, mesh_launches = {}, {}
     scratch = os.path.join(HERE, "build")
     os.makedirs(scratch, exist_ok=True)
     for genome_len in GENOMES:
         with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_") as work:
-            launches.update(index_phase(genome_len, args.seed, N_READS, work))
+            by_path, by_mesh = index_phase(genome_len, args.seed, N_READS, work)
+            launches.update(by_path)
+            mesh_launches.update(by_mesh)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     if foreign:
@@ -982,6 +1279,7 @@ def main() -> int:
         "source": "finito_tpu_torch/csrc/minimizer_front.cu",
         "replaces": "finito_tpu/ops/pallas_min.py:124",
         "launches": sum(launches.values()), "launches_by_path": launches,
+        "launches_by_mesh": mesh_launches,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "device_ms": kern["device_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

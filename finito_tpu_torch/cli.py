@@ -6,7 +6,7 @@
     python -m finito_tpu_torch.cli sbwt-build -k K -i unitigs.fna -o index.sbwt
     python -m finito_tpu_torch.cli convert-sbwt -i in.sbwt -o out.sbwt --to algbio|finito
     python -m finito_tpu_torch.cli build-fmin -i index.sbwt -u unitigs.fna -o <prefix> [--type ...]
-    python -m finito_tpu_torch.cli search-fmin -i <prefix> -q reads.fna -o out.txt [--device cuda]
+    python -m finito_tpu_torch.cli search-fmin -i <prefix> -q reads.fna -o out.txt [--device cuda] [--mesh DP,TP]
     python -m finito_tpu_torch.cli kmer-mapper query -i index -q reads.fna [-r] [--device cuda]
 
 The flags, the `.txt` file-of-files fan-out, the output line format
@@ -14,8 +14,8 @@ The flags, the `.txt` file-of-files fan-out, the output line format
 binary's dispatcher (including its stats file naming: `<index>.stats` and
 `<index>stats.txt` without a dot). The host commands run on the CPU;
 search-fmin and kmer-mapper take ``--device`` (default cuda; cpu runs the
-plain PyTorch versions of the kernels). Not ported: the dense, stream and
-replica engines and every ``--mesh`` above one device.
+plain PyTorch versions of the kernels); search-fmin takes ``--mesh DP,TP``
+(minimizer engine). Not ported: ``unitigs --mesh N`` above one device.
 """
 
 from __future__ import annotations
@@ -532,14 +532,23 @@ def search_fmin(argv: List[str]) -> int:
         "are the other device engines, all with identical output; "
         "'oracle' is the host reference algorithm).",
     )
-    p.add_argument("--mesh", default="1,1", metavar="DP,TP",
-                   help="Device mesh; only 1,1 (one device) is ported.")
+    p.add_argument(
+        "--mesh", default="1,1", metavar="DP,TP",
+        help="Device mesh for scale-out (minimizer engine): batch shards "
+        "over DP, the unitig text over TP; DP must be a power of two and "
+        "DP*TP devices must be visible (--device cpu repeats the CPU). "
+        "Default 1,1 (single device).",
+    )
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda; cpu runs "
                    "the plain PyTorch versions of the kernels).")
     args = p.parse_args(argv)
-    if args.mesh.replace(" ", "") != "1,1":
-        raise RuntimeError(f"--mesh {args.mesh} is not ported yet (only 1,1)")
+    try:
+        mesh_dp, mesh_tp = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        raise RuntimeError(f"--mesh must be DP,TP integers, got {args.mesh!r}")
+    if mesh_dp * mesh_tp > 1 and (mesh_dp & (mesh_dp - 1)):
+        raise RuntimeError("--mesh DP must be a power of two (batches pad to powers of two)")
 
     from finito_tpu_torch.index.index import FinimizerIndex
     from finito_tpu_torch.io.fastx import SequenceReader
@@ -571,7 +580,10 @@ def search_fmin(argv: List[str]) -> int:
     if args.engine != "oracle":
         from finito_tpu_torch.query.engine import DeviceQueryEngine
 
-        engine = DeviceQueryEngine(index, mode=args.engine, device=args.device)
+        mesh = (mesh_dp, mesh_tp) if mesh_dp * mesh_tp > 1 else None
+        engine = DeviceQueryEngine(index, mode=args.engine, device=args.device, mesh=mesh)
+    elif mesh_dp * mesh_tp > 1:
+        raise RuntimeError("--mesh requires --engine minimizer")
 
     k = index.sbwt.get_k()
     sys.stderr.write(

@@ -146,11 +146,11 @@ class MinimizerIndex:
 
         Texts past 2^31 bases build fine on the host (occ_gstart widens
         to int64); they exceed int32 DEVICE addressing, so single-chip
-        upload (DeviceMinimizerIndex) rejects them -- the JAX package
-        shards over the tp mesh axis instead
-        (finito_tpu/parallel/mesh.py ShardedMinimizerIndex.build, not
-        ported yet; its uniform slot width comes from rebucket(), a no-op
-        for already-matching h).
+        upload (DeviceMinimizerIndex) rejects them -- the text shards
+        over the tp mesh axis instead
+        (finito_tpu_torch/parallel/mesh.py ShardedMinimizerIndex.build;
+        its uniform slot width comes from rebucket(), a no-op for
+        already-matching h).
         """
         concat = np.asarray(concat, dtype=np.uint8)
         ends64 = np.asarray(ends, dtype=np.int64)
@@ -248,8 +248,9 @@ class MinimizerIndex:
         """Re-address the slot table with h slot bits (in place; returns
         self). Occurrences re-sort by (new slot, value) and desc is
         rebuilt -- answers are unchanged (the slot table is a pure
-        lookup accelerator). Used by the JAX package's tp-sharded form, which stacks
-        per-shard tables and therefore needs a uniform h."""
+        lookup accelerator). Used by the tp-sharded form
+        (parallel/mesh.py ShardedMinimizerIndex), which stacks per-shard
+        tables and therefore needs a uniform h."""
         h = int(h)
         if h == self.h:
             return self

@@ -1,9 +1,10 @@
 """Batched device query engines producing `search-fmin`-identical
-output: counterpart of finito_tpu/query/engine.py (one device, no mesh).
+output: counterpart of finito_tpu/query/engine.py.
 
-DeviceQueryEngine uploads a FinimizerIndex's tables to one device and
-locates strand-interleaved read batches there. Modes (search-fmin
---engine):
+DeviceQueryEngine uploads a FinimizerIndex's tables to one device, or
+shards them over a (dp, tp) mesh of devices (minimizer mode,
+search-fmin --mesh; parallel.mesh), and locates strand-interleaved read
+batches there. Modes (search-fmin --engine):
 
   * "minimizer": the seed-and-verify locate of query.minimizer_engine:
     the per-window v1 form below a 64 MB slot descriptor, the
@@ -208,21 +209,33 @@ class DeviceQueryEngine:
     locate form; None in the other modes)."""
 
     def __init__(self, index: FinimizerIndex, mode: str = "minimizer", device="cuda",
-                 mindex_cache: str | None = None, chunk: int | None = None):
+                 mesh=None, devices=None, mindex_cache: str | None = None,
+                 chunk: int | None = None):
         """device: where the tables live and the locate runs ("cuda",
-        "cuda:1", "cpu"). mindex_cache (minimizer mode): optional path;
-        the derived MinimizerIndex is loaded from it when it matches this
-        index and serialized to it after a build. chunk (stream and
-        replica): the chain scan's chunk length (ops.streaming
-        chunk_reads); None = auto_chunk, 0 = whole reads."""
+        "cuda:1", "cpu"). mesh: optional (dp, tp); with dp * tp > 1
+        (minimizer mode only) the locate runs sharded over a (dp, tp)
+        mesh (_init_mesh), with the same output. devices: the mesh's
+        devices (may repeat one); by default dp * tp times the CPU when
+        device is "cpu", else the first dp * tp CUDA devices.
+        mindex_cache (minimizer mode): optional path; the derived
+        MinimizerIndex is loaded from it when it matches this index and
+        serialized to it after a build. chunk (stream and replica): the
+        chain scan's chunk length (ops.streaming chunk_reads); None =
+        auto_chunk, 0 = whole reads."""
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r} (one of {', '.join(MODES)})")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         self.mode = mode
         self.k = index.sbwt.get_k()
         self.use_v2 = None
+        self.mesh_shape = tuple(mesh) if mesh and int(np.prod(mesh)) > 1 else None
+        if self.mesh_shape:
+            if mode != "minimizer":
+                raise ValueError("--mesh requires the minimizer engine")
+            self._init_mesh(index, devices)
+            return
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
         # (B, W) -> last sufficient (K_slow, K_heads) (minimizer);
         # (B, L) -> last sufficient segment capacity (stream, replica)
         self._sizes = {}
@@ -278,6 +291,64 @@ class DeviceQueryEngine:
             return locate
 
         self._make_segment_locate = make_stream
+
+    def _init_mesh(self, index: FinimizerIndex, devices):
+        """The mesh mode (JAX engine.py's locate_mesh): a text-sharded
+        ShardedMinimizerIndex built straight from the unitig text (no
+        single-host minimizer index), placed on the mesh once; merge_rle
+        and the readback run on the first mesh device."""
+        from finito_tpu_torch.parallel.mesh import (
+            ShardedMinimizerIndex,
+            make_mesh,
+            place_minimizer_shards,
+        )
+
+        dp, tp = self.mesh_shape
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * (dp * tp)
+        try:
+            self.mesh = make_mesh(dp * tp, tp=tp, devices=devices)
+        except RuntimeError as e:
+            raise RuntimeError(f"--mesh {dp},{tp} {e}") from None
+        self.device = self.mesh.devices[0, 0]
+        self._sharded = ShardedMinimizerIndex.build(
+            np.asarray(index.unitigs.concat, np.uint8),
+            np.asarray(index.unitigs.ends, np.int64),
+            self.k,
+            tp=tp,
+        )
+        self._mesh_tables = place_minimizer_shards(self.mesh, self._sharded)
+        self._mesh_locates = {}  # K_slow -> sharded_minimizer_locate_fn
+        self._locate_async = self._locate_mesh_async
+
+    def _mesh_locate(self, K: int):
+        from finito_tpu_torch.parallel.mesh import sharded_minimizer_locate_fn
+
+        if K not in self._mesh_locates:
+            self._mesh_locates[K] = sharded_minimizer_locate_fn(
+                self.mesh, self._sharded, K, tables=self._mesh_tables)
+        return self._mesh_locates[K]
+
+    def _locate_mesh_async(self, codes: torch.Tensor):
+        """The mesh locate with JAX's capacity rule: B divisible by dp,
+        first K = max(256, B*W/32), and a run whose n_slow exceeds K
+        redone at 4x K up to B*W; the check is deferred to verify(), as
+        in _locate_minimizer_async."""
+        B, L = codes.shape
+        W = L - self.k + 1
+        K = max(256, (B * W) // 32)
+        first = self._mesh_locate(K)(codes)
+
+        def verify(K=K):
+            out = first
+            while int(out[2]) > K:
+                if K >= B * W:
+                    raise AssertionError("slow-path overflow at K == B*W")
+                K = min(B * W, K * 4)
+                out = self._mesh_locate(K)(codes)
+            return None if out is first else (out[0], out[1])
+
+        return first[0], first[1], verify
 
     def _minimizer_index(self, index: FinimizerIndex, cache: str | None) -> MinimizerIndex:
         if cache and os.path.exists(cache):

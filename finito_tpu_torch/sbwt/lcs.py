@@ -12,8 +12,9 @@ column_r[i] is the r-th-from-last character of node i's label; the first
 column is implied by the C array. Values in [0, k-1]; serialized width is
 bit_width(k-1) like the reference (:115).
 
-The JAX package's device-side build (finito_tpu/ops/lcs_jax.py) has no
-counterpart in the port yet.
+The device-side build is finito_tpu_torch/ops/lcs_device.py (one
+device) and finito_tpu_torch/parallel/mesh.py:sharded_lcs_fn (the node
+axis sharded over a mesh); both equal this function.
 """
 
 from __future__ import annotations

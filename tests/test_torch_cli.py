@@ -1,8 +1,8 @@
 """The port's CLI (finito_tpu_torch/cli.py, --device cpu) against the JAX
 CLI's search-fmin --engine minimizer: byte-identical output and
 <prefix>.stats, and <prefix>stats.txt equal in every field but the
-timing. Also: the port, kmer-mapper included, runs with jax imports
-blocked."""
+timing, on one device and with --mesh 4,2. Also: the port, kmer-mapper
+included, runs with jax imports blocked."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+
+import jax
 
 from finito_tpu import cli as jax_cli
 from finito_tpu_torch import cli as port_cli
@@ -169,13 +171,51 @@ def test_engines_default_to_cuda(tmp_path, capsys):
         assert not out.exists()
 
 
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs the virtual 8-device mesh")
+def test_mesh_matches_single_and_jax(tmp_path):
+    """search-fmin --device cpu --mesh 4,2: output and .stats byte-
+    identical to the port's single-device run and to the JAX CLI's
+    --mesh 4,2 on its 8 virtual devices (the JAX test_mesh case)."""
+    rng = np.random.default_rng(31)
+    k = 6
+    unitigs = gen_dspss(rng, 12, 12, 60, k)
+    prefix = _build(tmp_path, unitigs, k)
+    reads = []
+    for i in range(17):
+        if i % 3 == 0:
+            reads.append(unitigs[int(rng.integers(len(unitigs)))])
+        else:
+            reads.append("".join(rng.choice(list("ACGT"), int(rng.integers(k, 40)))))
+    q = tmp_path / "q.fna"
+    write_fasta(q, reads)
+    j_out, j_stats, j_txt = _search(jax_cli.main, prefix, q, tmp_path / "j.txt",
+                                    ["--engine", "minimizer", "--mesh", "4,2"])
+    runs = [_search(port_cli.main, prefix, q, tmp_path / f"p{i}.txt", ["--device", "cpu", *extra])
+            for i, extra in enumerate((["--mesh", "4,2"], []))]
+    for p_out, p_stats, p_txt in runs:
+        assert (p_out, p_stats) == (j_out, j_stats)
+        assert p_txt.decode().split(",")[2:] == j_txt.decode().split(",")[2:]
+    assert j_out.count(b"\n") == 17
+
+
 def test_unported_flags_fail(tmp_path, capsys):
+    """The JAX CLI's --mesh checks, word for word, and unitigs --mesh N
+    (the mesh build is not ported)."""
     prefix = _build(tmp_path, PAPER_UNITIGS, 4)
     q = tmp_path / "q.fna"
     write_fasta(q, ["AAGTAA"])
-    for extra in (["--mesh", "2,1"],):
+    for extra, msg in ((["--mesh", "3,1"], "--mesh DP must be a power of two"),
+                       (["--mesh", "2"], "--mesh must be DP,TP integers"),
+                       (["--mesh", "2,1", "--engine", "oracle"], "--mesh requires --engine minimizer")):
+        capsys.readouterr()
         assert port_cli.main(["search-fmin", "-i", prefix, "-q", str(q), "--device", "cpu",
                               *extra]) == 1
+        assert msg in capsys.readouterr().err
+    with pytest.raises(ValueError, match="--mesh requires the minimizer engine"):
+        port_cli.main(["search-fmin", "-i", prefix, "-q", str(q), "--device", "cpu",
+                       "--engine", "dense", "--mesh", "2,1"])
+    assert port_cli.main(["unitigs", "-k", "3", "-i", str(q), "-o", str(tmp_path / "u.fna"),
+                          "--mesh", "2"]) == 1
     # kmer-mapper without a subcommand: its usage, exit code 1
     capsys.readouterr()
     assert port_cli.main(["kmer-mapper"]) == 1

@@ -60,6 +60,8 @@ BLOCKED = textwrap.dedent("""
     cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("out.txt"), "--device", "cpu")
     cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("stream.txt"),
         "--engine", "stream", "--device", "cpu")
+    cli("search-fmin", "-i", p("idx"), "-q", p("reads.fna"), "-o", p("mesh.txt"),
+        "--device", "cpu", "--mesh", "2,2")
     cli("kmer-mapper", "build", "-u", p("f.fna"), "-k", "11", "-o", p("km"))
     cli("kmer-mapper", "query", "-i", p("km"), "-q", p("reads.fna"), "-r", "-o", p("km.txt"),
         "--device", "cpu")
@@ -70,6 +72,7 @@ BLOCKED = textwrap.dedent("""
     out = open(p("out.txt")).read().splitlines()
     assert len(out) == len(reads) and out[-1] == "" and "(-1,-1)" not in out[0], out[:2]
     assert open(p("stream.txt"), "rb").read() == open(p("out.txt"), "rb").read()
+    assert open(p("mesh.txt"), "rb").read() == open(p("out.txt"), "rb").read()
     assert open(p("km.txt")).read() == open(p("kmh.txt")).read()
     assert open(p("b.sbwt"), "rb").read() == open(p("x.sbwt"), "rb").read()
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
