@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the port's main paths, ``search-fmin`` (every --engine, and the
-minimizer engine on (dp, tp) meshes) and ``kmer-mapper query``, through
-the port's CLI, at realistic index sizes, and checks every answer.
+minimizer engine on (dp, tp) meshes), ``kmer-mapper query`` and the mesh
+builds (``sharded_index_build``, ``unitigs --mesh``), through the port's
+CLI and entry points, at realistic sizes, and checks every answer.
 Phases, one line or more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
@@ -57,7 +58,19 @@ Phases, one line or more each:
         the CLI only where dp * tp cards are visible;
      f. the LCS array on the host, on the card (lcs_array_device) and over
         4 shards on cuda:0 (sharded_lcs_fn): all equal, seconds of each;
-     g. run_distributed_queries in 2 processes on cuda:0 joined by gloo:
+     g. the mesh index build: sharded_index_build over 4 shards, every
+        one on cuda:0, from the unitigs of 4.: every array equal to the
+        index build-fmin wrote and its files byte-identical;
+        ShardedIndex.build(tp=4) equal to from_index, and its
+        sharded_locate_fn equal to FinimizerIndex.search on probe reads;
+     h. the mesh unitig build: unitigs --mesh 4 through the port's CLI on
+        a pangenome (a 4,641,652 bp base and 4 variants at SNP rate
+        0.002, k=31), with --device cuda:0 (4 shards on the card) and
+        --device cuda (a shard a visible card): each file byte-identical
+        to the host unitigs' on the same input. One JSON line a build
+        (g., h.): seconds per phase, overflow retries, node and k-mer
+        counts, peak device memory, host peak RSS, the host build's time;
+     i. run_distributed_queries in 2 processes on cuda:0 joined by gloo:
         the merged file byte-identical to the single run and to a.'s.
 
 Prints the kernels' JSON line (launches in total and per main-path run),
@@ -111,6 +124,15 @@ FOREIGN = ("finito_tpu", "bench", "jax", "jaxlib")
 # because the CLI's last chunk holds 2 reads (B = 4, ROADMAP C7)
 MESHES = ((1, 2), (2, 2), (1, 4))
 LCS_SHARDS = 4  # sharded_lcs_fn's mesh, every device cuda:0
+# the mesh build: shards of sharded_index_build and unitigs --mesh, every
+# one on cuda:0
+MESH_BUILD_SHARDS = 4
+# the pangenome of unitigs --mesh: (base bp, variants, SNP rate, k), the
+# shape of scripts/pangenome_verify.py
+PANGENOME = (4_641_652, 4, 0.002, 31)
+# the files FinimizerIndex.serialize writes under a prefix
+INDEX_FILES = (".O.sdsl", ".FBV.sdsl", ".packed_unitigs.sdsl", ".unitig_endpoints.sdsl",
+               ".Ustart.sdsl", ".LCS.sdsl", ".sbwt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
@@ -406,21 +428,24 @@ def parse_output(path: str, n_lines: int):
     return out
 
 
-def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations):
+def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations, k=K, read_len=READ_LEN):
     """Every window of every genome read, closed form (the DSPSS oracle):
     a k-mer occurs once, in the unitig whose cut range holds its
     genome start; windows covering a mutation are absent (forward, and
     their reverse complement with probability ~1 - n/4^k). The unitig
-    ids are those of the index whose unitig text is concat_u/ends_u."""
-    B, n_win = starts.size, READ_LEN - K + 1
+    ids are those of the index whose unitig text is concat_u/ends_u: the
+    two unitig orders are matched on the multiword keys of their first k
+    bases (sbwt.keys, any k; one uint64 holds only 32 bases)."""
+    from finito_tpu_torch.sbwt import keys as kw
+
+    B, n_win = starts.size, read_len - k + 1
     ends_u = np.asarray(ends_u)
     concat_u = np.asarray(concat_u)
     ustart = np.concatenate([[0], ends_u[:-1]])
-    pw = np.uint64(1) << (np.uint64(2) * np.arange(K, dtype=np.uint64))
-    first_perm = concat_u[ustart[:, None] + np.arange(K)].astype(np.uint64) @ pw
-    first_orig = genome[cuts[:-1, None] + np.arange(K)].astype(np.uint64) @ pw
-    o1, o2 = np.argsort(first_orig), np.argsort(first_perm)
-    if not np.array_equal(first_orig[o1], first_perm[o2]):
+    first_perm = kw.pack_rows(concat_u[ustart[:, None] + np.arange(k)] + 1)
+    first_orig = kw.pack_rows(genome[cuts[:-1, None] + np.arange(k)] + 1)
+    o1, o2 = kw.sort_order(first_orig), kw.sort_order(first_perm)
+    if not all(np.array_equal(a[o1], b[o2]) for a, b in zip(first_orig, first_perm)):
         raise AssertionError("unitig sets differ")
     perm = np.empty(cuts.size - 1, np.int64)
     perm[o1] = o2
@@ -431,7 +456,7 @@ def analytic_expected(concat_u, ends_u, genome, cuts, starts, mutations):
     mi, mj = mutations
     absent = np.zeros((B, n_win), bool)
     rel = mj[:, None] - np.arange(n_win)[None, :]
-    np.logical_or.at(absent, mi, (rel >= 0) & (rel < K))
+    np.logical_or.at(absent, mi, (rel >= 0) & (rel < k))
     return np.stack([np.where(absent, -1, uid), np.where(absent, -1, off)], axis=-1)
 
 
@@ -1073,6 +1098,283 @@ def lcs_phase(genome_len: int, index) -> None:
     log(json.dumps(row))
 
 
+HOST_RSS_SOURCE = "statm sampled every 10 ms"  # how host_peak measures
+
+
+@contextlib.contextmanager
+def host_peak():
+    """The peak resident set of this process while the block runs, MiB,
+    in the yielded dict's "mib": a thread samples /proc/self/statm every
+    10 ms (VmHWM cannot be reset, and some kernels do not report it);
+    "mib_at_start" is the resident set when it begins."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss() -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page / 2**20
+
+    box = {"mib": 0.0, "mib_at_start": rss()}
+    stop = threading.Event()
+
+    def sample() -> None:
+        while True:
+            box["mib"] = max(box["mib"], rss())
+            if stop.wait(0.01):
+                return
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield box
+    finally:
+        stop.set()
+        thread.join()
+        box["mib"] = max(box["mib"], rss())
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Seconds of every call, synchronised before and after, of each
+    (module, name) in targets while the block runs, summed by name; the
+    mesh builds' sorts, all_to_all transposes and scatters likewise,
+    under "op sort", "op all_to_all" and "op scatter" (inside the
+    phases, so not to be added to them); and the overflow retries: the
+    nonzero results of the mesh builds' _total (every retry loop reads
+    its summed overflow count through it)."""
+    import torch
+
+    from finito_tpu_torch.ops import keys
+    from finito_tpu_torch.parallel import shard_build, shard_dbg
+
+    seconds, retries, saved = {}, [0], []
+    ops = [(keys, "argsort_rows", "op sort"), (shard_build, "_all_to_all", "op all_to_all"),
+           (shard_build, "_scatter_rows", "op scatter")]
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    def total(parts):
+        n = shard_build_total(parts)
+        retries[0] += n > 0
+        return n
+
+    shard_build_total = shard_build._total
+    for module, name, label in [(m, n, n) for m, n in targets] + ops:
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, wrap(label, getattr(module, name)))
+    for module in (shard_build, shard_dbg):
+        saved.append((module, "_total", module._total))
+        module._total = total
+    try:
+        yield seconds, retries
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+
+
+def probe_codes(reads):
+    """Reads as one (B, L) code batch, 255 past each read's end."""
+    from finito_tpu_torch.io.seqdb import encode_seq
+
+    codes = np.full((len(reads), max(len(r) for r in reads)), 255, np.uint8)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = encode_seq(r)
+    return codes
+
+
+def mesh_index_build_phase(genome_len: int, prefix: str, fna: str, work: str, index, probe) -> int:
+    """sharded_index_build on a flat mesh of MESH_BUILD_SHARDS shards,
+    every one on cuda:0, from the DSPSS unitigs: every array equal to the
+    index build-fmin wrote (prefix, loaded as index) and its files byte-
+    identical; ShardedIndex.build(tp=MESH_BUILD_SHARDS) equal to
+    from_index on the card's position table, and its sharded_locate_fn
+    equal to FinimizerIndex.search on the probe reads. One JSON line:
+    seconds per phase, overflow retries, counts, peak device memory,
+    host peak RSS, and the same build on the host. Returns the front-end
+    kernel's launches during the build (the build path runs none)."""
+    import torch
+
+    from finito_tpu_torch.index import packed_strings
+    from finito_tpu_torch.index.builder import FinimizerIndexBuilder
+    from finito_tpu_torch.io.fastx import read_all_records
+    from finito_tpu_torch.io.seqdb import SeqDB
+    from finito_tpu_torch.ops.bitvec import DeviceSBWT
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.parallel import mesh, shard_build
+    from finito_tpu_torch.query.engine import build_position_table
+    from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
+    from finito_tpu_torch.sbwt.lcs import lcs_array
+
+    n_sh = MESH_BUILD_SHARDS
+    seqs = [bytes(seq) for _h, seq in read_all_records(fna)]
+    what = f"sharded_index_build {genome_len} bp"
+    # the same build on the host: build-fmin's path, in process
+    t0 = time.perf_counter()
+    with host_peak() as host_rss:
+        sb, keys = build_plain_matrix_sbwt(seqs, K, return_keys=True)
+        builder = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(seqs),
+                                        node_keys=keys)
+        builder.get_index()
+    host_s = time.perf_counter() - t0
+    del sb, keys, builder
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    targets = [(shard_build, "sharded_sbwt_build"), (mesh, "sharded_lcs_fn"),
+               (packed_strings, "permute_unitigs"), (shard_build, "sharded_finimizer_select")]
+    minimizer_windows.launches = 0
+    t0 = time.perf_counter()
+    with host_peak() as rss, timed_calls(targets) as (phases, retries):
+        got = shard_build.sharded_index_build(seqs, K, devices=[DEVICE + ":0"] * n_sh)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = minimizer_windows.launches
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    # every array and the files against the host-built index
+    for name in ("LCS", "fmin", "global_offsets", "Ustart"):
+        if not np.array_equal(getattr(got, name), getattr(index, name)):
+            raise AssertionError(f"{what}: {name} differs from the host-built index")
+    for a, b in ((got.sbwt.bit_rows(), index.sbwt.bit_rows()),
+                 (got.sbwt.get_C_array(), index.sbwt.get_C_array()),
+                 (got.unitigs.concat, index.unitigs.concat), (got.unitigs.ends, index.unitigs.ends)):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"{what}: the SBWT or the unitig text differs from the host's")
+    mprefix = os.path.join(work, "mesh_idx")
+    got.serialize(mprefix)
+    for suffix in INDEX_FILES:
+        with open(mprefix + suffix, "rb") as f, open(prefix + suffix, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{what}: {suffix} is not byte-identical to build-fmin's")
+    log(f"check {what} ({n_sh} shards on {DEVICE}:0): every array equals the host-built index, "
+        f"the {len(INDEX_FILES)} index files are byte-identical to build-fmin's")
+
+    # the tp-sharded SBWT locate tables from mesh_pos, and their locate
+    t1 = time.perf_counter()
+    built = mesh.ShardedIndex.build(got, tp=n_sh)
+    tables_s = time.perf_counter() - t1
+    pos = build_position_table(DeviceSBWT.from_host(index.sbwt, DEVICE), index.unitigs.concat,
+                               index.unitigs.ends)
+    ref = mesh.ShardedIndex.from_index(index, pos, tp=n_sh)
+    for name in ("words", "blocks", "loc_table", "node_start", "C", "ends"):
+        if not np.array_equal(getattr(built, name), getattr(ref, name)):
+            raise AssertionError(f"ShardedIndex.build: {name} differs from from_index")
+    grid = mesh.make_mesh(n_sh, tp=n_sh, devices=[DEVICE + ":0"] * n_sh)
+    uid, off = mesh.sharded_locate_fn(grid, built)(probe_codes(probe))
+    uid, off = uid.cpu().numpy(), off.cpu().numpy()
+    for i, r in enumerate(probe):
+        want = index.search(r).local_offsets
+        if list(zip(uid[i, : len(want)].tolist(), off[i, : len(want)].tolist())) != want:
+            raise AssertionError(f"sharded_locate_fn on ShardedIndex.build disagrees with "
+                                 f"FinimizerIndex.search: {r!r}")
+    log(f"check ShardedIndex.build(tp={n_sh}) {genome_len} bp: equal to from_index on the "
+        f"card's position table; its sharded_locate_fn equals FinimizerIndex.search on "
+        f"{len(probe)} probe reads")
+    log(json.dumps({
+        "build": "sharded_index_build", "index_bp": genome_len, "k": K, "shards": n_sh,
+        "devices": f"{DEVICE}:0 x{n_sh}", "wall_s": wall, "phases_s": phases,
+        "overflow_retries": retries[0], "front_end_launches": launches,
+        "nodes": got.sbwt.number_of_subsets(),
+        "kmers": got.sbwt.number_of_kmers(), "unitigs": int(np.asarray(got.unitigs.ends).size),
+        "peak_device_mib": peak, "host_peak_rss_mib": rss["mib"],
+        "sharded_index_tables_s": tables_s, "host_build_s": host_s,
+        "host_rss_at_start_mib": rss["mib_at_start"],
+        "host_build_peak_rss_mib": host_rss["mib"], "host_rss_source": HOST_RSS_SOURCE}))
+    del got, built, ref, pos
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gen_pangenome(rng, base_len: int, n_var: int, snp: float) -> list:
+    """A random base genome and n_var copies with snp * base_len point
+    substitutions each (the shape of scripts/pangenome_verify.py)."""
+    base = rng.integers(0, 4, size=base_len, dtype=np.uint8)
+    out = [base]
+    for _ in range(n_var):
+        v = base.copy()
+        pos = rng.choice(base_len, size=max(1, int(snp * base_len)), replace=False)
+        v[pos] = (v[pos] + rng.integers(1, 4, size=pos.size)) % 4
+        out.append(v)
+    return out
+
+
+def mesh_unitig_phase(seed: int, work: str) -> int:
+    """unitigs --mesh MESH_BUILD_SHARDS through the port's CLI on a
+    pangenome (PANGENOME), with --device cuda:0 (every shard on the
+    one card) and --device cuda (one shard a visible card): each file
+    byte-identical to the port's host unitigs on the same input. One
+    JSON line: seconds per phase, overflow retries, counts, peak device
+    memory, host peak RSS, and the host build's seconds and RSS. Returns
+    the front-end kernel's launches in the mesh runs (the build path runs
+    none)."""
+    import torch
+
+    from finito_tpu_torch import cli, dbg
+    from finito_tpu_torch.io.seqdb import decode_seq
+    from finito_tpu_torch.parallel import shard_dbg
+
+    base_len, n_var, snp, k = PANGENOME
+    n_sh = MESH_BUILD_SHARDS
+    seqs = gen_pangenome(np.random.default_rng(seed + 7), base_len, n_var, snp)
+    fna = os.path.join(work, "pangenome.fna")
+    with open(fna, "wb") as f:
+        for i, v in enumerate(seqs):
+            f.write(b">v%d\n%s\n" % (i, decode_seq(v)))
+    what = f"unitigs --mesh {n_sh} {base_len} bp x{n_var + 1}"
+
+    host_out = os.path.join(work, "pan_host.fna")
+    with host_peak() as host_rss:
+        rc, logs, host_s, _ = run_counted(cli.main, ["unitigs", "-k", str(k), "-i", fna,
+                                                     "-o", host_out])
+    if rc != 0:
+        raise RuntimeError(f"unitigs (host) failed:\n{logs}")
+    with open(host_out, "rb") as f:
+        want = f.read()
+
+    rows, launches = {}, 0
+    for device in (DEVICE + ":0", DEVICE):
+        out = os.path.join(work, f"pan_mesh_{device.replace(':', '')}.fna")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        targets = [(shard_dbg, "_pack_shards"), (shard_dbg, "_distinct"),
+                   (dbg, "links_to_unitigs")]
+        with host_peak() as rss, timed_calls(targets) as (phases, retries):
+            rc, logs, wall, n = run_counted(cli.main, ["unitigs", "-k", str(k), "-i", fna, "-o", out,
+                                                        "--mesh", str(n_sh), "--device", device])
+        launches += n
+        if rc != 0:
+            raise RuntimeError(f"{what} --device {device} failed:\n{logs}")
+        with open(out, "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{what} --device {device}: not byte-identical to the host build")
+        shards = n_sh if device != DEVICE else min(n_sh, torch.cuda.device_count())
+        counts = re.findall(r"(\d+) unitigs, (\d+) distinct canonical k-mers", logs)[-1]
+        log(f"check {what} --device {device} ({shards} shard(s)): the file is byte-identical to "
+            f"the host unitigs' ({counts[0]} unitigs, {counts[1]} canonical k-mers)")
+        rows[device] = {"shards": shards, "wall_s": wall, "phases_s": phases,
+                        "overflow_retries": retries[0], "front_end_launches": n,
+                        "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+                        "host_peak_rss_mib": rss["mib"],
+                        "host_rss_at_start_mib": rss["mib_at_start"]}
+    log(json.dumps({
+        "build": "unitigs --mesh", "base_bp": base_len, "variants": n_var, "snp": snp, "k": k,
+        "input_bp": base_len * (n_var + 1), "unitigs": int(counts[0]), "kmers": int(counts[1]),
+        "runs": rows, "host_build_s": host_s, "host_build_peak_rss_mib": host_rss["mib"],
+        "host_rss_source": HOST_RSS_SOURCE}))
+    return launches
+
+
 def dist_worker(argv) -> int:
     """One rank of dist_phase: join the gloo group, run this rank's read
     slice on cuda:0, write its part; rank 0 merges after the barrier."""
@@ -1213,6 +1515,12 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
         mesh_launches = mesh_phase(genome_len, prefix, qpath, work, check, index, both)
         launches["search-fmin --mesh"] = sum(mesh_launches.values())
         lcs_phase(genome_len, index)
+        probe = [r for r in extra if len(r) >= K and b"N" not in r] + [
+            decode_seq(reads[i]) for i in sample]
+        # the build paths run no kernel: their counts stand in the line as 0
+        launches[f"sharded_index_build {genome_len} bp"] = mesh_index_build_phase(
+            genome_len, prefix, os.path.join(work, "unitigs.fna"), work, index, probe)
+        launches[f"unitigs --mesh {PANGENOME[0]} bp"] = mesh_unitig_phase(seed, work)
         dist_phase(genome_len, prefix, qpath, work, index)
     return launches, mesh_launches
 
@@ -1229,6 +1537,10 @@ def main() -> int:
     args = p.parse_args()
 
     t_start = time.perf_counter()
+    if not os.path.isdir(os.path.join(HERE, "finito_tpu_torch")):
+        # the script alone, outside a checkout, has no program to drive
+        raise SystemExit(f"chip_smoke: no finito_tpu_torch/ beside {os.path.abspath(__file__)}; "
+                         "run it from a checkout of the repository")
     import torch
 
     if not torch.cuda.is_available():

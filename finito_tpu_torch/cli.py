@@ -1,7 +1,7 @@
 """Command-line interface of the port: the host commands and
 ``search-fmin``/``kmer-mapper`` on a torch device.
 
-    python -m finito_tpu_torch.cli unitigs -k K -i reads.fna -o unitigs.fna [--flip]
+    python -m finito_tpu_torch.cli unitigs -k K -i reads.fna -o unitigs.fna [--flip] [--mesh N]
     python -m finito_tpu_torch.cli flip-unitigs -k K -i unitigs.fna -o flipped.fna
     python -m finito_tpu_torch.cli sbwt-build -k K -i unitigs.fna -o index.sbwt
     python -m finito_tpu_torch.cli convert-sbwt -i in.sbwt -o out.sbwt --to algbio|finito
@@ -15,7 +15,8 @@ binary's dispatcher (including its stats file naming: `<index>.stats` and
 `<index>stats.txt` without a dot). The host commands run on the CPU;
 search-fmin and kmer-mapper take ``--device`` (default cuda; cpu runs the
 plain PyTorch versions of the kernels); search-fmin takes ``--mesh DP,TP``
-(minimizer engine). Not ported: ``unitigs --mesh N`` above one device.
+(minimizer engine); unitigs takes ``--mesh N`` (the sharded build,
+parallel.shard_dbg, on N devices) and ``--device``.
 """
 
 from __future__ import annotations
@@ -112,8 +113,12 @@ def unitigs_cmd(argv: List[str]) -> int:
                    help="re-orient the unitigs for head-to-tail chaining "
                    "(fewer SBWT dummy chains; the unitig_flipper step)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="devices to shard the build over; only the host "
-                   "build (0 or 1) is ported")
+                   help="shard the node set + successor joins over an "
+                   "N-device mesh (parallel.shard_dbg; 0 = host build)")
+    p.add_argument("--device", default="cuda",
+                   help="devices of --mesh N (default cuda: the first N "
+                   "cards, or every card when fewer are visible; one "
+                   "device such as cuda:0 or cpu holds all N shards)")
     p.add_argument("--min-multiplicity", type=int, default=1, metavar="M",
                    help="drop k-mers seen fewer than M times (like "
                    "ggcat; use >= 2 for raw sequencing reads)")
@@ -123,8 +128,6 @@ def unitigs_cmd(argv: List[str]) -> int:
                    "nodes -- same k-mer set, far fewer strings, smaller "
                    "downstream index (the eulertig-style space win)")
     args = p.parse_args(argv)
-    if args.mesh > 1:
-        raise RuntimeError(f"--mesh {args.mesh} is not ported yet (only the host build)")
 
     from finito_tpu_torch.dbg import flip_unitigs, unitigs_from_fasta
     from finito_tpu_torch.io.fastx import SequenceWriter
@@ -134,7 +137,7 @@ def unitigs_cmd(argv: List[str]) -> int:
     check_writable(args.out_file)
     write_log(f"Building unitigs k={args.k} from {args.in_file}", LogLevel.MAJOR)
     if args.mode == "simplitigs":
-        if args.forward_only:
+        if args.forward_only or args.mesh > 1:
             raise SystemExit("--mode simplitigs: host canonical build only")
         from finito_tpu_torch.dbg import build_simplitigs
         from finito_tpu_torch.io.fastx import SequenceReader
@@ -143,6 +146,32 @@ def unitigs_cmd(argv: List[str]) -> int:
         with SequenceReader(args.in_file) as r:
             seqs = [encode_seq(seq) for _h, seq in r]
         unis = build_simplitigs(seqs, args.k, min_mult=args.min_multiplicity)
+    elif args.mesh > 1:
+        if args.forward_only:
+            raise SystemExit("--mesh supports canonical mode only")
+        if args.min_multiplicity > 1:
+            raise SystemExit("--min-multiplicity requires the host build (no --mesh)")
+        from finito_tpu_torch.io.fastx import SequenceReader
+        from finito_tpu_torch.io.seqdb import encode_seq
+        from finito_tpu_torch.parallel.shard_build import flat_devices
+        from finito_tpu_torch.parallel.shard_dbg import sharded_unitig_build
+
+        import torch
+
+        dev = torch.device(args.device)
+        if dev.type == "cuda" and dev.index is None:
+            devices = flat_devices(n_devices=args.mesh)
+        else:
+            n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if dev.type == "cuda" and dev.index >= n_cards:
+                raise RuntimeError(f"--device {args.device}: {n_cards} CUDA device(s) visible")
+            devices = flat_devices(devices=[dev] * args.mesh)
+        if len(devices) < args.mesh:
+            write_log(f"--mesh {args.mesh}: {len(devices)} card(s) visible, "
+                      f"building on {len(devices)} shard(s)", LogLevel.MAJOR)
+        with SequenceReader(args.in_file) as r:
+            seqs = [encode_seq(seq) for _h, seq in r]
+        unis = sharded_unitig_build(seqs, args.k, devices=devices)
     else:
         unis = unitigs_from_fasta(
             args.in_file, args.k, canonical=not args.forward_only,

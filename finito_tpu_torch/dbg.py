@@ -308,9 +308,9 @@ def links_to_unitigs(
     canonical: bool,
 ) -> List[np.ndarray]:
     """Degrees/successors (per oriented node id, 2*node + o) -> emitted
-    unitig code arrays. The JAX package's host builder and its mesh-sharded
-    builder (finito_tpu/parallel/shard_dbg.py, not ported yet) share it,
-    so both emit bit-identical strings.
+    unitig code arrays. The host builder and the mesh-sharded builder
+    (parallel/shard_dbg.py) share it, so both emit bit-identical
+    strings.
     fetch_head_mat(fnode, fori) -> (n_sel, k) uint8 head k-mer chars."""
     n_ori = outdeg.size
 

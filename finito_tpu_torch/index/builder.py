@@ -203,8 +203,9 @@ class FinimizerIndexBuilder:
                 ranks = kw.match_into(wk, node_keys)
                 del wk
             else:
-                # fallback: batched host SBWT search (the device search of
-                # ops/bitvec.py is not ported yet)
+                # fallback: batched host SBWT search (the host builder
+                # stays on the host; the mesh build,
+                # parallel.shard_build, ranks the windows on the devices)
                 windows = np.lib.stride_tricks.sliding_window_view(concat, k)[vpos]
                 ranks = np.empty(vpos.size, dtype=np.int64)
                 CH = 1 << 20

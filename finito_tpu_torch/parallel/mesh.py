@@ -1,6 +1,6 @@
 """Multi-device scale-out of the query path: (dp, tp) sharding, the
-counterpart of finito_tpu/parallel/mesh.py (less ShardedIndex.build,
-which takes the index that the mesh build produces).
+counterpart of finito_tpu/parallel/mesh.py. ShardedIndex.build takes
+the index that the mesh build (parallel.shard_build) produces.
 
   * dp ("data parallel"): query reads are sharded along the batch axis.
   * tp ("table parallel"): the index is sharded. For the SBWT locate
@@ -130,12 +130,54 @@ class ShardedIndex:
         """Shard a loaded FinimizerIndex over tp, given its dense
         per-colex position table (query.engine.build_position_table; a
         tensor or a numpy array)."""
-        from finito_tpu_torch.utils.bits import pack_bits
-
         if isinstance(pos_table, torch.Tensor):
             pos_table = pos_table.cpu().numpy()
+        g_end = np.asarray(pos_table, dtype=np.int64)
+        return ShardedIndex._shard(index, tp, lambda lo, hi: g_end[lo:hi])
+
+    @staticmethod
+    def build(index, tp: int) -> "ShardedIndex":
+        """Shard-local construction from a mesh-built index
+        (parallel.shard_build.sharded_index_build): the per-colex dense
+        position slices came out of the mesh finimizer routing
+        (index.mesh_pos), so unlike from_index no position table is built
+        on one device. Equals from_index on the same index."""
+        if getattr(index, "mesh_pos", None) is None:
+            raise ValueError(
+                "ShardedIndex.build needs a mesh-built index "
+                "(sharded_index_build attaches index.mesh_pos); for a "
+                "loaded index use from_index with a dense pos_table"
+            )
+        pos_shards, Mn = index.mesh_pos
+
+        def pos_range(lo: int, hi: int) -> np.ndarray:
+            """g_end of colex range [lo, hi) out of the width-Mn mesh
+            blocks (no full-length concatenation)."""
+            out = np.full(hi - lo, -1, np.int64)
+            i = lo
+            while i < hi:
+                s = i // Mn
+                a = i - s * Mn
+                b = min(Mn, a + (hi - i))
+                out[i - lo : i - lo + (b - a)] = pos_shards[s][a:b]
+                i += b - a
+            return out
+
+        return ShardedIndex._shard(index, tp, pos_range)
+
+    @staticmethod
+    def _shard(index, tp: int, pos_range) -> "ShardedIndex":
+        """The shards of from_index and build, one target shard at a
+        time; pos_range(lo, hi) -> the global window end of each colex
+        rank in [lo, hi) (-1 for dummies). The per-colex (uid, offset)
+        is resolved here on the host: 2 gathers a k-mer in the locate
+        instead of a searchsorted."""
+        from finito_tpu_torch.utils.bits import pack_bits
+
         sbwt = index.sbwt
         n = sbwt.number_of_subsets()
+        k = sbwt.get_k()
+        ends64 = np.asarray(index.unitigs.ends, dtype=np.int64)
         bit_rows = sbwt.bit_rows()
         nodes_per_shard = -(-n // (32 * tp)) * 32  # word-aligned shard width
         words_per_shard = nodes_per_shard // 32
@@ -143,20 +185,6 @@ class ShardedIndex:
         blocks = np.zeros((tp, 4, words_per_shard), dtype=np.int32)
         loc_sh = np.full((tp, nodes_per_shard, 2), -1, dtype=np.int32)
         node_start = np.zeros(tp, dtype=np.int32)
-
-        # per-colex (uid, offset), resolved once host-side: 2 gathers a
-        # k-mer instead of a searchsorted
-        k = sbwt.get_k()
-        ends64 = np.asarray(index.unitigs.ends, dtype=np.int64)
-        g_end = np.asarray(pos_table, dtype=np.int64)
-        found = g_end >= 0
-        g_start = g_end - k + 1
-        uid_all = np.searchsorted(ends64, g_start, side="right").astype(np.int32)
-        u_start = np.where(uid_all > 0, ends64[np.maximum(uid_all - 1, 0)], 0)
-        off_all = (g_start - u_start).astype(np.int32)
-        uid_all = np.where(found, uid_all, -1)
-        off_all = np.where(found, off_all, -1)
-
         for s in range(tp):
             lo = s * nodes_per_shard
             hi = min(n, lo + nodes_per_shard)
@@ -169,8 +197,14 @@ class ShardedIndex:
                 words[s, c, : w32.size] = w32
                 pc = np.bitwise_count(words[s, c]).astype(np.int64)
                 blocks[s, c, 1:] = np.cumsum(pc[:-1])
-            loc_sh[s, : hi - lo, 0] = uid_all[lo:hi]
-            loc_sh[s, : hi - lo, 1] = off_all[lo:hi]
+            g_end = pos_range(lo, hi)
+            found = g_end >= 0
+            g_start = g_end - k + 1
+            uid = np.searchsorted(ends64, g_start, side="right").astype(np.int32)
+            u_start = np.where(uid > 0, ends64[np.maximum(uid - 1, 0)], 0)
+            off = (g_start - u_start).astype(np.int32)
+            loc_sh[s, : hi - lo, 0] = np.where(found, uid, -1)
+            loc_sh[s, : hi - lo, 1] = np.where(found, off, -1)
         return ShardedIndex(
             words=words,
             blocks=blocks,

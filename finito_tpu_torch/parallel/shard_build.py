@@ -1,0 +1,765 @@
+"""Mesh-sharded index construction: the twin of
+finito_tpu/parallel/shard_build.py.
+
+The plain-matrix SBWT, then the finimizer selection, built with the node
+set sharded over S devices by a distributed sample sort:
+
+  * k-mer windows are packed per shard on the host and moved to the
+    shard's device; each shard radix-sorts its windows (LSD over 32-bit
+    planes, ops.keys), routes them to the shard owning their splitter
+    bucket with one padded all_to_all, and dedups locally: equal keys
+    land on one shard, so local dedup is global dedup.
+  * sources ((k-1)-prefix not among (k-1)-suffixes) are a distributed
+    join: both sides re-route by a common (k-1)-space splitter set, the
+    owner resolves membership by a combined sort, and the answers ride
+    the inverse all_to_all back.
+  * $-padded dummies are made per shard from the sources and merged with
+    the k-mers by a second sample-sort round: the node set, colex-sharded
+    in contiguous ranges.
+  * in-edges: suffix-group firsts need one halo row from the left
+    (groups may straddle shard seams); the (group suffix -> global first
+    index) map and the per-node prefix queries meet by the same
+    (k-1)-space routing; the (target, char) edge bits are routed once
+    more by node-range ownership and set in the shard's bit rows.
+  * the finimizer selection (sharded_finimizer_select) routes each text
+    shard's windows to the node shard owning them, realigns the
+    candidates with one halo from the left, takes the k-step window
+    minimum with one halo from the right, and resolves the cross-unitig
+    overwrite rule at the owning node shard by one multiword sort.
+
+The JAX package runs each phase as one shard_map program. Here the mesh
+is a flat list of torch devices in one process (parallel.mesh's model;
+a device may repeat), and each phase splits at its collectives into
+per-shard stages issued shard after shard:
+  lax.all_to_all(x, tiled=True)  -> _all_to_all, an exact block
+      transpose: shard j receives cat_i(send_i[j*M:(j+1)*M]), in source
+      order; applied twice it is the identity, so it also carries the
+      answers back;
+  lax.ppermute halos             -> a slice of the neighbour's tensor,
+      moved; the end shards take JAX's fill values;
+  lax.all_gather                 -> host counts the caller already read.
+
+All exchanges use fixed-capacity blocks: exact where a prior pass
+counted them, else slack with an overflow retry (each try reads the
+summed overflow count once, and doubles the capacity on overflow), so
+exactness is never traded away. The JAX package's multi-process
+branches (_host, _put) have no counterpart: this runs in one process.
+
+Output equals build_plain_matrix_sbwt and FinimizerIndexBuilder bit for
+bit (tests/test_torch_shard_build.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from finito_tpu_torch.ops import keys as kj
+from finito_tpu_torch.ops.bits import U32
+from finito_tpu_torch.sbwt import keys as kw
+from finito_tpu_torch.sbwt.sbwt import PlainMatrixSBWT
+
+
+def flat_devices(mesh=None, n_devices: Optional[int] = None, devices=None) -> List[torch.device]:
+    """The shards' devices, one a shard, in order (JAX's _flat_mesh):
+    `devices` as given (a device may repeat: ["cpu"] * 8 runs 8 shards
+    on the CPU); else a parallel.mesh.Mesh's grid, flattened; else the
+    first `mesh` (an int) or n_devices visible CUDA cards, all of them
+    by default, and fewer where fewer are visible (the output does not
+    depend on the shard count). Without a card this raises: the build
+    never falls back to the CPU unless asked."""
+    from finito_tpu_torch.parallel.mesh import Mesh
+
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if isinstance(mesh, Mesh):
+        return [torch.device(d) for d in mesh.devices.reshape(-1)]
+    if mesh is not None and not isinstance(mesh, int):
+        return [torch.device(d) for d in mesh]
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards == 0:
+        raise RuntimeError("the mesh build runs on CUDA devices and none is visible "
+                           "(devices=['cpu'] * N runs N shards on the CPU)")
+    n = mesh if isinstance(mesh, int) else (n_devices or n_cards)
+    return [torch.device("cuda", i) for i in range(min(n, n_cards))]
+
+
+def _total(parts) -> int:
+    """Sum of per-shard scalar tensors: one host read."""
+    dev = parts[0].device
+    return int(sum(p.to(dev) for p in parts))
+
+
+def _per_device(devs, a: np.ndarray) -> dict:
+    """A host table on each distinct device, int64 (uint32 planes
+    widened by ops.keys.to_device)."""
+    out = {}
+    for d in devs:
+        if d not in out:
+            out[d] = (kj.to_device(a, d) if a.dtype == np.uint32
+                      else torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(d))
+    return out
+
+
+def _resent(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rows where mask is True back to the sentinel (key algebra on
+    sentinel rows makes valid-looking garbage)."""
+    return torch.where(mask[:, None], kj.SENT, keys)
+
+
+def _scatter_rows(fill: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor, n: int):
+    """fill.at[slot].set(rows)[:n]: fill has one sink row past n, where
+    every dropped row goes."""
+    fill[slot] = rows
+    return fill[:n]
+
+
+def _all_to_all(sends: Sequence[torch.Tensor], devs) -> List[torch.Tensor]:
+    """lax.all_to_all(x, "D", 0, 0, tiled=True) over the flat mesh:
+    sends[i] is shard i's (S*M, ...) block stack; shard j receives
+    cat_i(sends[i][j*M:(j+1)*M]) on devs[j]."""
+    S = len(sends)
+    M = sends[0].shape[0] // S
+    return [torch.cat([sends[i][j * M : (j + 1) * M].to(devs[j]) for i in range(S)])
+            for j in range(S)]
+
+
+def _exchange_send(keys, splitters, S: int, M: int, payloads=()):
+    """One shard's half of the sample-sort exchange, before the
+    all_to_all: every non-sentinel row to the block of the shard owning
+    its splitter bucket, at most M a block. Returns (send (S*M, P),
+    payload sends (S*M,) each, overflow count, (order, slot, ok)): the
+    last lets _answers_back scatter per-slot answers onto the rows."""
+    n, Pp = keys.shape
+    dev = keys.device
+    order = kj.argsort_rows(keys)
+    skeys = keys[order]
+    b = kj.bucket_of(skeys, splitters)  # monotone over the sorted keys
+    start = torch.searchsorted(b, torch.arange(S, dtype=b.dtype, device=dev))
+    off = torch.arange(n, device=dev) - start[b.clamp(max=S - 1)]
+    sent = kj.is_sentinel(skeys)
+    ok = ~sent & (off < M)
+    overflow = (~sent & (off >= M)).sum()
+    slot = torch.where(ok, b * M + off, S * M)
+    send = _scatter_rows(kj.sentinel_rows(S * M + 1, Pp, dev), slot, skeys, S * M)
+    spay = [_scatter_rows(torch.full((S * M + 1,), -1, dtype=p.dtype, device=dev), slot,
+                          p[order], S * M) for p in payloads]
+    return send, spay, overflow, (order, slot, ok)
+
+
+def _exchange(keys_l, spl, S: int, M: int, devs, payloads_l=None):
+    """The sample-sort exchange on every shard: keys_l[s] is shard s's
+    (n_s, P) rows, spl a device -> splitters map, payloads_l[s] shard
+    s's aligned payloads. Returns (recv (S*M, P) per shard, received
+    payloads per shard, overflow count per shard, context per shard)."""
+    sends, pays, ovf, ctx = [], [], [], []
+    for s in range(S):
+        send, spay, o, c = _exchange_send(keys_l[s], spl[devs[s]], S, M,
+                                          payloads_l[s] if payloads_l else ())
+        sends.append(send)
+        pays.append(spay)
+        ovf.append(o)
+        ctx.append(c)
+    recv = _all_to_all(sends, devs)
+    rpay = [_all_to_all([pays[s][i] for s in range(S)], devs) for i in range(len(pays[0]))]
+    return recv, [[r[s] for r in rpay] for s in range(S)], ovf, ctx
+
+
+def _answers_back(ans_l, ctx_l, n_l, S: int, M: int, devs) -> List[torch.Tensor]:
+    """The inverse all_to_all of per-slot answers -> per-row answers of
+    each shard (-1 where the row was not sent)."""
+    back = _all_to_all(ans_l, devs)
+    out = []
+    for s in range(S):
+        order, slot, ok = ctx_l[s]
+        got = torch.where(ok, back[s][slot.clamp(max=S * M - 1)], -1)
+        out.append(torch.full((n_l[s],), -1, dtype=got.dtype, device=devs[s])
+                   .scatter_(0, order, got))
+    return out
+
+
+def _sort_dedup_compact(recv, cap: int):
+    """Sort received rows, drop duplicates and sentinels, compact to the
+    front; returns (keys (cap, P) sentinel-padded, count)."""
+    Pp, dev = recv.shape[1], recv.device
+    r = recv[kj.argsort_rows(recv)]
+    keep = ~kj.eq_adjacent_rows(r) & ~kj.is_sentinel(r)
+    pos = torch.cumsum(keep.to(torch.int64), 0) - 1
+    out = _scatter_rows(kj.sentinel_rows(cap + 1, Pp, dev),
+                        torch.where(keep, pos.clamp(max=cap), cap), r, cap)
+    return out, keep.sum()
+
+
+def _route_send(own, payloads, S: int, M: int):
+    """One shard's half of _route_by_owner before the all_to_all: the
+    payload rows in blocks by the owner `own` names (S = dropped), at
+    most M a block. Fill is -1 for payload 0 (the validity channel) and
+    0 for the others. Returns (sends, overflow count)."""
+    dev = own.device
+    n = own.shape[0]
+    order = torch.sort(own, stable=True).indices
+    own_s = own[order]
+    start = torch.searchsorted(own_s, torch.arange(S, dtype=own_s.dtype, device=dev))
+    off = torch.arange(n, device=dev) - start[own_s.clamp(max=S - 1)]
+    ok = (own_s < S) & (off < M)
+    overflow = ((own_s < S) & (off >= M)).sum()
+    slot = torch.where(ok, own_s * M + off, S * M)
+    sends = [_scatter_rows(torch.full((S * M + 1,), -1 if i == 0 else 0, dtype=p.dtype,
+                                      device=dev), slot, p[order], S * M)
+             for i, p in enumerate(payloads)]
+    return sends, overflow
+
+
+def _route_by_owner(own_l, payloads_l, S: int, M: int, devs):
+    """Route payload rows to the shard named by own_l[s] (S = dropped),
+    one padded all_to_all a payload. Returns (received payloads per
+    shard, each (S*M,); overflow count per shard)."""
+    sends, ovf = zip(*(_route_send(own_l[s], payloads_l[s], S, M) for s in range(S)))
+    recv = [_all_to_all([sends[s][i] for s in range(S)], devs) for i in range(len(sends[0]))]
+    return [[r[s] for r in recv] for s in range(S)], list(ovf)
+
+
+def _put_shard_blocks(devs, block_fn) -> List[torch.Tensor]:
+    """One tensor a shard: block_fn(s) -> host block, moved to devs[s]
+    and freed, so the host working set peaks at one shard's block.
+    uint32 blocks (key planes) are widened to the int64 convention on
+    the device."""
+    parts = []
+    for s, d in enumerate(devs):
+        b = block_fn(s)
+        if b.dtype == np.uint32:
+            parts.append(kj.to_device(b, d))
+        else:
+            parts.append(torch.from_numpy(b).to(d))
+        del b
+    return parts
+
+
+def _host_splitters(samples: List[np.ndarray], S: int, Pp: int) -> np.ndarray:
+    """S-1 quantile splitters from a small host sample (a few KB)."""
+    planes = kj.from_host(kw.sort_keys(samples))
+    n = planes.shape[0]
+    if n == 0:
+        return np.full((S - 1, Pp), 0xFFFFFFFF, np.uint32)
+    idx = ((np.arange(1, S) * n) // S).clip(0, n - 1)
+    return planes[idx]
+
+
+def _pack_shards(segs: Sequence[np.ndarray], k: int, devs, key_fn):
+    """Host prep shared by the mesh builders: a greedy contiguous split
+    of the segments over the shards by window count, per-shard packing
+    by key_fn(seg) -> key words, and a strided splitter sample (the key
+    sets are never concatenated on the host). Shards are packed one at a
+    time and moved to their devices (_put_shard_blocks). Returns (keys0
+    per shard (N0, P) int64, sample)."""
+    S = len(devs)
+    Pp = kj.n_planes(k)
+    wins = np.array([c.size - k + 1 for c in segs], np.int64)
+    total = int(wins.sum())
+    if total == 0:
+        raise ValueError("no k-mers in input")
+    bounds = np.searchsorted(np.cumsum(wins), np.arange(1, S) * (total / S))
+    groups = np.split(np.arange(len(segs)), bounds)
+    W = (3 * k + 63) // 64
+    # one window per position of each segment: the padded block size is
+    # known without packing (key_fn keeps the window count)
+    N0 = max(1, max((int(wins[g].sum()) for g in groups), default=1))
+
+    def block(s):
+        g = groups[s]
+        ks = kw.concat([key_fn(segs[i]) for i in g]) if len(g) else kw.empty(W)
+        blk = np.full((N0, Pp), 0xFFFFFFFF, np.uint32)
+        if ks[0].size:
+            blk[: ks[0].size] = kj.from_host(ks)
+        return blk
+
+    keys0 = _put_shard_blocks(devs, block)
+    # splitter sample: strided single windows packed straight from the
+    # segments, O(64 * S) windows
+    stride = max(1, total // (64 * S))
+    samples = []
+    g0 = 0
+    nxt = 0
+    for seg in segs:
+        w = seg.size - k + 1
+        while nxt < g0 + w:
+            i = nxt - g0
+            samples.append(key_fn(seg[i : i + k]))
+            nxt += stride
+        g0 += w
+    sample = kw.concat(samples) if samples else kw.empty(W)
+    return keys0, sample
+
+
+def _distinct(keys0, spl, devs):
+    """Phases A and B of both mesh builds: local sort with exact bucket
+    counts, the window exchange and dedup. Returns (distinct keys per
+    shard, (R1, P) sentinel-padded, their counts on the host, R1)."""
+    S = len(devs)
+    skeys, counts = [], []
+    for s in range(S):
+        ks = keys0[s]
+        sk = ks[kj.argsort_rows(ks)]
+        b = kj.bucket_of(sk, spl[devs[s]])
+        counts.append(torch.zeros(S, dtype=torch.int64, device=devs[s])
+                      .index_add_(0, b, (~kj.is_sentinel(sk)).to(torch.int64)).max())
+        skeys.append(sk)
+    M1 = max(1, int(torch.stack([c.to(devs[0]) for c in counts]).max()))  # exact
+    R1 = S * M1
+    recv, _, ovf, _ = _exchange(skeys, spl, S, M1, devs)
+    del skeys
+    if _total(ovf) != 0:
+        raise AssertionError("sample sort: the exact window capacity overflowed")
+    out, m = zip(*(_sort_dedup_compact(r, R1) for r in recv))
+    m_host = torch.stack([x.to(devs[0]) for x in m]).cpu().numpy().astype(np.int64)
+    return list(out), m_host, R1
+
+
+def sharded_sbwt_build(
+    seqs: Sequence,
+    k: int,
+    mesh=None,
+    n_devices: Optional[int] = None,
+    slack: float = 1.5,
+    return_keys: bool = False,
+    devices=None,
+):
+    """The plain-matrix SBWT of `seqs` with the node set sharded over the
+    mesh (module docstring; the shards' devices: flat_devices). Returns
+    a PlainMatrixSBWT (and the colex-sorted node keys if return_keys),
+    bit-identical to build_plain_matrix_sbwt."""
+    from finito_tpu_torch.io.seqdb import encode_seq
+
+    if k < 2:
+        raise ValueError("k must be >= 2")
+    devs = flat_devices(mesh, n_devices, devices)
+    S = len(devs)
+    Pp = kj.n_planes(k)
+
+    # ---- host prep: encode, split contiguously by window count, pack
+    codes_all = []
+    for s in seqs:
+        codes = s if isinstance(s, np.ndarray) else encode_seq(
+            s if isinstance(s, bytes) else s.encode()
+        )
+        if np.any(codes == 255):
+            raise ValueError("Invalid character in input sequence (only ACGT allowed)")
+        if codes.size >= k:
+            codes_all.append(codes)
+    keys0, sample = _pack_shards(codes_all, k, devs, lambda seg: kw.pack_windows(seg, k))
+
+    # splitters: node-key space (1) and (k-1)-suffix space (2)
+    spl1 = _per_device(devs, _host_splitters(sample, S, Pp))
+    spl2 = _per_device(devs, _host_splitters(kw.shift_right3(sample), S, Pp))
+
+    # ---- phases A, B: distinct k-mers, sharded
+    kmers, m_host, R1 = _distinct(keys0, spl1, devs)
+    del keys0
+    n_kmers = int(m_host.sum())
+
+    # ---- phase C: sources ((k-1)-prefix not among (k-1)-suffixes)
+    M2 = max(1, int(np.ceil(slack * R1 / S)))
+    sents = [kj.is_sentinel(km) for km in kmers]
+    sufs = [_resent(kj.shift_right3_rows(km), se) for km, se in zip(kmers, sents)]
+    pres = [_resent(kj.mask_low_rows(km, k - 1), se) for km, se in zip(kmers, sents)]
+    while True:
+        recvR, _, ovf1, _ = _exchange(sufs, spl2, S, M2, devs)
+        recvQ, _, ovf2, ctxQ = _exchange(pres, spl2, S, M2, devs)
+        ans = [kj.match_rows(recvQ[s], recvR[s],
+                             torch.where(kj.is_sentinel(recvR[s]), -1, 1))
+               for s in range(S)]
+        got = _answers_back(ans, ctxQ, [km.shape[0] for km in kmers], S, M2, devs)
+        is_source = [~se & (g < 0) for se, g in zip(sents, got)]
+        if _total(ovf1 + ovf2) == 0:
+            break
+        M2 *= 2
+    del sufs, pres, recvR, recvQ
+    cap_src = max(1, int(torch.stack([x.sum().to(devs[0]) for x in is_source]).max()))
+
+    # ---- phase D: dummies + node sample-sort
+    send_max = R1 + (k - 1) * cap_src + 1
+    M3 = max(1, int(np.ceil(slack * send_max / S)))
+    allk = []
+    for s in range(S):
+        km, src_mask = kmers[s], is_source[s]
+        pos = torch.cumsum(src_mask.to(torch.int64), 0) - 1
+        srcbuf = _scatter_rows(kj.sentinel_rows(cap_src + 1, Pp, devs[s]),
+                               torch.where(src_mask, pos.clamp(max=cap_src), cap_src),
+                               km, cap_src)
+        ssent = kj.is_sentinel(srcbuf)
+        blocks = [km]
+        for j in range(1, k):
+            blocks.append(_resent(kj.shift_left_rows(kj.mask_low_rows(srcbuf, j), k - j), ssent))
+        root = (torch.zeros((1, Pp), dtype=torch.int64, device=devs[s]) if s == 0
+                else kj.sentinel_rows(1, Pp, devs[s]))
+        allk.append(torch.cat(blocks + [root]))
+    del kmers, is_source
+    while True:
+        capN = S * M3
+        recv, _, ovf, _ = _exchange(allk, spl1, S, M3, devs)
+        if _total(ovf) == 0:
+            break
+        M3 *= 2
+    del allk
+    nodes, mn = zip(*(_sort_dedup_compact(r, capN) for r in recv))
+    del recv
+    mn_host = torch.stack([x.to(devs[0]) for x in mn]).cpu().numpy().astype(np.int64)
+    n_nodes = int(mn_host.sum())
+    node_start = np.zeros(S, np.int64)
+    node_start[1:] = np.cumsum(mn_host)[:-1]
+
+    # ---- phase E: suffix-group firsts + in-edges -> sharded bit rows
+    M4 = max(1, int(np.ceil(slack * capN / S)))
+    M5 = max(1, int(np.ceil(slack * capN / S)))
+    idx = {d: torch.arange(capN, device=d) for d in devs}
+    nstart = _per_device(devs, node_start)
+    valid, nsuf = [], []
+    for s in range(S):
+        v = idx[devs[s]] < int(mn_host[s])
+        valid.append(v)
+        nsuf.append(_resent(kj.shift_right3_rows(nodes[s]), ~v))
+    # the halo: the last valid suffix of the nearest non-empty shard left
+    # (JAX's all_gather + carry loop, on the counts already read)
+    firsts, gidxs = [], []
+    carry = kj.sentinel_rows(1, Pp, devs[0])
+    for s in range(S):
+        prev_row = torch.cat([carry.to(devs[s]), nsuf[s][:-1]])
+        if mn_host[s] > 0:
+            carry = nsuf[s][int(mn_host[s]) - 1 : int(mn_host[s])]
+        diff = (nsuf[s] != prev_row).any(dim=1)
+        gidx = int(node_start[s]) + idx[devs[s]]
+        firsts.append(valid[s] & (diff | (gidx == 0)))
+        gidxs.append(gidx)
+    gkeys = [_resent(nsuf[s], ~firsts[s]) for s in range(S)]
+    gvals = [[torch.where(firsts[s], gidxs[s], -1)] for s in range(S)]
+    chs = [kj.top_char_rows(nodes[s], k) for s in range(S)]
+    nonroot = [valid[s] & (chs[s] != 0) for s in range(S)]
+    qks = [_resent(kj.mask_low_rows(nodes[s], k - 1), ~nonroot[s]) for s in range(S)]
+    del nsuf, firsts
+    while True:
+        recvR, rpay, ovfA, _ = _exchange(gkeys, spl2, S, M4, devs, gvals)
+        recvQ, _, ovfB, ctxQ = _exchange(qks, spl2, S, M4, devs)
+        ans = [kj.match_rows(recvQ[s], recvR[s], rpay[s][0]) for s in range(S)]
+        tf = _answers_back(ans, ctxQ, [capN] * S, S, M4, devs)
+        miss = [(nonroot[s] & (tf[s] < 0)).sum() for s in range(S)]
+        # route (target first, char) to the owning node-range shard
+        own = []
+        for s in range(S):
+            eligible = nonroot[s] & (tf[s] >= 0)
+            owner = torch.searchsorted(nstart[devs[s]], tf[s].clamp(min=0), right=True) - 1
+            own.append(torch.where(eligible, owner, S))
+        (recvE, ovfC) = _route_by_owner(own, [(tf[s], chs[s]) for s in range(S)], S, M5, devs)
+        if _total(ovfA + ovfB + ovfC) == 0:
+            break
+        M4 *= 2
+        M5 *= 2
+    if _total(miss) != 0:
+        raise AssertionError("sharded SBWT construction: missing predecessor group")
+
+    bit_parts = []
+    for s in range(S):
+        tf_r, ch_r = recvE[s]
+        okR = tf_r >= 0
+        locp = tf_r - int(node_start[s])
+        okR = okR & (locp >= 0) & (locp < capN)
+        bits = torch.zeros((4, capN + 1), dtype=torch.uint8, device=devs[s])
+        bits[torch.where(okR, ch_r - 1, 0), torch.where(okR, locp, capN)] = 1
+        bit_parts.append(bits[:, : int(mn_host[s])].cpu().numpy())
+    bit_rows = np.concatenate(bit_parts, axis=1)
+    sbwt = PlainMatrixSBWT.from_bit_rows(bit_rows, k=k, n_kmers=n_kmers)
+    if return_keys:
+        segs = [nodes[s][: int(mn_host[s])].cpu().numpy() for s in range(S)]
+        return sbwt, kj.to_host(np.concatenate(segs, axis=0))
+    return sbwt
+
+
+def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
+                             slack: float = 1.3, return_pos: bool = False):
+    """Mesh finimizer selection: the O(text) stages of
+    FinimizerIndexBuilder sharded over the mesh (the twin of the JAX
+    package's; its docstring has the stages). The NODE axis is sharded
+    in S contiguous colex blocks of width Mn, the TEXT axis in S
+    contiguous position blocks of width B. mesh: a parallel.mesh.Mesh, a
+    device count or a list of devices (flat_devices).
+
+    Returns (fmin_bv, global_offsets, stats) as full-length host arrays
+    and a FinimizerStatsSet, all equal to the host builder's; with
+    return_pos also (pos_shards, Mn): each node shard's (Mn,) int32
+    global window end a colex rank (-1 for dummies), the input of
+    parallel.mesh.ShardedIndex.build."""
+    from finito_tpu_torch.index.builder import FinimizerStatsSet, prefix_candidates
+
+    devs = flat_devices(mesh)
+    S = len(devs)
+    k = sbwt.get_k()
+    n_nodes = sbwt.number_of_subsets()
+    Pp = kj.n_planes(k)
+    concat = np.asarray(packed.concat, dtype=np.uint8)
+    ends = np.asarray(packed.ends, dtype=np.int64)
+    starts = np.concatenate([[0], ends[:-1]])
+    N = concat.size
+    n_u = ends.size
+
+    if n_nodes >= (1 << 31) or N + S >= (1 << 31):
+        raise ValueError("sharded_finimizer_select: int32 plane encoding "
+                         "requires < 2^31 nodes and text positions")
+    if k > 255:
+        raise ValueError("k > 255 exceeds the packed window-min encoding")
+    if node_keys[0].size != n_nodes:
+        raise ValueError("node_keys must cover every SBWT node (colex-sorted)")
+
+    LCS = np.asarray(LCS, dtype=np.int64)
+    su = (np.maximum(LCS, np.concatenate([LCS[1:], [0]])) + 1).astype(np.int32)
+
+    # ---- node sharding: S uniform colex blocks (ownership = division)
+    Mn = -(-n_nodes // S)
+    realmask = (node_keys[0] & np.uint64(7)) != 0  # no $ at label start
+    real_counts = np.zeros(S, np.int64)
+    for s in range(S):
+        a, b = s * Mn, min((s + 1) * Mn, n_nodes)
+        if b > a:
+            real_counts[s] = int(realmask[a:b].sum())
+
+    def node_block(s):
+        a, b = s * Mn, min((s + 1) * Mn, n_nodes)
+        blk = np.full((Mn, Pp), 0xFFFFFFFF, np.uint32)
+        if b > a:
+            blk[: b - a] = kj.from_host(kw.take(node_keys, np.arange(a, b)))
+        return blk
+
+    def su_block(s):
+        a, b = s * Mn, min((s + 1) * Mn, n_nodes)
+        blk = np.zeros(Mn, np.int64)
+        if b > a:
+            blk[: b - a] = su[a:b]
+        return blk
+
+    nodes_d = _put_shard_blocks(devs, node_block)
+    su_d = _put_shard_blocks(devs, su_block)
+    bidx = (np.arange(1, S) * Mn).clip(0, max(n_nodes - 1, 0))
+    spl = np.where(
+        (np.arange(1, S) * Mn < n_nodes)[:, None],
+        kj.from_host(kw.take(node_keys, bidx)),
+        np.uint32(0xFFFFFFFF),
+    ).astype(np.uint32)
+    spl_d = _per_device(devs, spl)
+    M1 = max(1, int(real_counts.max()))  # exact: one window per real node
+
+    # ---- text sharding: S contiguous position blocks, B >= k; window
+    # keys packed per shard from the text slice
+    B = max(-(-N // S), k)
+    n_pos = N - k + 1
+    if n_pos <= 0:
+        raise ValueError("no k-mer windows in input")
+    # host control plane: prefix candidates, scattered to end-position owners
+    pc_pos, pc_len, pc_colex = prefix_candidates(sbwt, su, starts, ends, concat)
+
+    def shard_valid(s):
+        a = s * B
+        b = min(a + B, n_pos)
+        v = np.zeros(B, np.bool_)
+        if a < n_pos:
+            pos_s = np.arange(a, b, dtype=np.int64)
+            uid_s = np.searchsorted(ends, pos_s, side="right")
+            v[: b - a] = pos_s + k <= ends[uid_s]
+        return v
+
+    # per-shard valid counts -> the order bases
+    vcounts = np.array([int(shard_valid(s).sum()) for s in range(S)], np.int64)
+    n_valid = int(vcounts.sum())
+    base_ord = np.zeros(S, np.int64)
+    base_ord[1:] = np.cumsum(vcounts)[:-1]
+
+    def wk_block(s):
+        a = s * B
+        b = min(a + B, n_pos)
+        blk = np.full((B, Pp), 0xFFFFFFFF, np.uint32)
+        if a < n_pos:
+            v = shard_valid(s)[: b - a]
+            seg = kj.from_host(kw.pack_windows(concat[a : b - 1 + k], k))
+            blk[: b - a][v] = seg[v]
+        return blk
+
+    def pc_block(vals, fill):
+        def f(s):
+            a = s * B
+            blk = np.full(B, fill, np.int64)
+            sel = (pc_pos >= a) & (pc_pos < a + B)
+            blk[pc_pos[sel] - a] = vals[sel]
+            return blk
+
+        return f
+
+    wk_d = _put_shard_blocks(devs, wk_block)
+    val_d = _put_shard_blocks(devs, shard_valid)
+    pcl_d = _put_shard_blocks(devs, pc_block(pc_len, k + 2))
+    pcc_d = _put_shard_blocks(devs, pc_block(pc_colex, 0))
+    ends_d = _per_device(devs, ends)
+    starts_d = _per_device(devs, starts)
+    BIG = ((k + 2) << 16) << 32  # (BIGHI, 0) as one 64-bit key
+
+    # ---- phase A: ranks + realignment + window minimum
+    # window keys to their node shard, the windows' starts as payload
+    ar = {d: torch.arange(max(B, Mn), device=d) for d in devs}
+    recv, rpay, ovfA, ctx = _exchange(wk_d, spl_d, S, M1, devs,
+                                      [[s * B + ar[devs[s]][:B]] for s in range(S)])
+    del wk_d
+    colex_a, su_a, pos_sh = [], [], []
+    for s in range(S):
+        idx = kj.match_rows(recv[s], nodes_d[s], ar[devs[s]][:Mn])
+        # the shard's dense position table: the routed window's global
+        # END lands at its node's local slot (one window a real node in a
+        # DSPSS; dummies stay -1), the input of ShardedIndex.build
+        pos = torch.full((Mn + 1,), -1, dtype=torch.int64, device=devs[s])
+        pos_sh.append(_scatter_rows(pos, torch.where(idx >= 0, idx, Mn), rpay[s][0] + (k - 1), Mn))
+        colex_a.append(torch.where(idx >= 0, s * Mn + idx, -1))
+        su_a.append(torch.where(idx >= 0, su_d[s][idx.clamp(min=0)], -1))
+    del recv, rpay, nodes_d
+    colex_b = _answers_back(colex_a, ctx, [B] * S, S, M1, devs)
+    su_b = _answers_back(su_a, ctx, [B] * S, S, M1, devs)
+    miss = [(val_d[s] & (colex_b[s] < 0)).sum() for s in range(S)]
+    wlen = [torch.where(val_d[s], su_b[s], k + 2) for s in range(S)]
+    wcol = [torch.where(val_d[s], colex_b[s], 0) for s in range(S)]
+    # per-START candidate -> per-END candidate: shift right k-1 across
+    # shards (the left neighbour's last k-1; shard 0 takes the fill)
+    e = []
+    for s in range(S):
+        if s == 0:
+            halo_l = torch.full((k - 1,), k + 2, dtype=torch.int64, device=devs[s])
+            halo_c = torch.zeros(k - 1, dtype=torch.int64, device=devs[s])
+        else:
+            halo_l = wlen[s - 1][B - (k - 1):].to(devs[s])
+            halo_c = wcol[s - 1][B - (k - 1):].to(devs[s])
+        e_len = torch.cat([halo_l, wlen[s][: B - (k - 1)]])
+        e_col = torch.cat([halo_c, wcol[s][: B - (k - 1)]])
+        has_pc = pcl_d[s] <= k + 1
+        e_len = torch.where(has_pc, pcl_d[s], e_len)
+        e_col = torch.where(has_pc, pcc_d[s], e_col)
+        # the (hi, lo) uint32 pair of JAX as one 64-bit key: hi = len << 16
+        # | col >> 15, lo = (col & 0x7FFF) << 8 | r
+        e.append(((((e_len & U32) << 16) | (e_col >> 15)) << 32) | ((e_col & 0x7FFF) << 8))
+    del wlen, wcol, pcl_d, pcc_d
+    outs = []
+    for s in range(S):
+        # right halo for the window minimum (ends t1 .. t1+k-2): the right
+        # neighbour's first k-1; the last shard takes the fill
+        rh = (e[s + 1][: k - 1].to(devs[s]) if s + 1 < S
+              else torch.full((k - 1,), BIG, dtype=torch.int64, device=devs[s]))
+        ext = torch.cat([e[s], rh])
+        fin = torch.full((B,), BIG, dtype=torch.int64, device=devs[s])
+        for r in range(k):
+            c = ext[r : r + B] | r
+            bad = (c >> 48) > r + 1
+            fin = torch.minimum(fin, torch.where(bad, BIG, c))
+        valid = val_d[s]
+        fin_hi, fin_lo = fin >> 32, fin & U32
+        none_cnt = (valid & (fin_hi >= BIG >> 32)).sum()
+        fin_col = ((fin_hi & 0xFFFF) << 15) | (fin_lo >> 8)
+        fin_r = fin_lo & 0xFF
+        ws_g = s * B + ar[devs[s]][:B]
+        uid = torch.searchsorted(ends_d[devs[s]], ws_g, right=True)
+        st_u = starts_d[devs[s]][uid.clamp(max=n_u - 1)]
+        local_end = ws_g - st_u + fin_r
+        order_g = int(base_ord[s]) + torch.cumsum(valid.to(torch.int64), 0) - 1
+        outs.append((fin_col, local_end, order_g, ws_g + fin_r, valid, none_cnt))
+    del e
+    if _total(miss) != 0:
+        raise AssertionError("sharded finimizer build: window k-mer missing "
+                             "from the node set (input not a DSPSS?)")
+    if _total(ovfA) != 0:
+        raise AssertionError("sharded finimizer build: the exact window capacity overflowed")
+    if _total([o[5] for o in outs]) != 0:
+        raise AssertionError("sharded finimizer build: window without a "
+                             "candidate (impossible for a valid t=1 DSPSS)")
+    if int(torch.stack([o[1].max().to(devs[0]) for o in outs]).max().clamp(min=0)) >= (1 << 30):
+        raise ValueError("unitig longer than 2^30: scatter key overflow")
+
+    # ---- phase B: route rows to node owners, resolve the overwrite rule
+    M2 = max(1, int(np.ceil(slack * n_valid / S)))
+    own = [torch.where(o[4], o[0] // Mn, S) for o in outs]
+    rows = [o[:4] for o in outs]
+    while True:
+        recvB, ovfB = _route_by_owner(own, rows, S, M2, devs)
+        if _total(ovfB) == 0:
+            break
+        M2 *= 2
+    del outs, own, rows
+    fmin_parts, glob_parts = [], []
+    for s in range(S):
+        col_r, le_r, od_r, ge_r = recvB[s]
+        got = col_r >= 0
+        coll = torch.where(got, col_r - s * Mn, 0)
+        # scatter-max key (local_end << 33 | (2^33-1 - order), or order
+        # when local_end == 0) as three uint32 planes: order < 2^31 makes
+        # bit 32 of (2^33-1 - order) always 1
+        key_hi = torch.where(le_r > 0, ((le_r << 1) | 1) & U32, 0)
+        key_lo = torch.where(le_r > 0, U32 - (od_r & U32), od_r & U32)
+        planes = torch.stack([key_lo, key_hi, torch.where(got, coll, kj.SENT)], dim=1)
+        order2 = kj.argsort_rows(planes)
+        s_col, s_ge, s_got = coll[order2], ge_r[order2], got[order2]
+        nxt_col = torch.cat([s_col[1:], s_col.new_full((1,), -1)])
+        nxt_got = torch.cat([s_got[1:], s_got.new_zeros(1)])
+        winner = s_got & ((s_col != nxt_col) | ~nxt_got)
+        fmin_loc = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.uint8, device=devs[s]),
+                                 torch.where(s_got, s_col, Mn), torch.ones_like(s_col, dtype=torch.uint8), Mn)
+        glob_loc = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.int64, device=devs[s]),
+                                 torch.where(winner, s_col, Mn), s_ge, Mn)
+        fmin_parts.append(fmin_loc.cpu().numpy())
+        glob_parts.append(glob_loc.cpu().numpy())
+
+    fmin_bv = np.concatenate(fmin_parts)[:n_nodes].astype(np.uint8)
+    global_offsets = np.concatenate(glob_parts)[:n_nodes].clip(0).astype(np.uint64)
+    marked = np.flatnonzero(fmin_bv).astype(np.int64)
+    stats_packed = np.sort((su[marked].astype(np.int64) << 41) | (marked << 1))
+    stats = FinimizerStatsSet(stats_packed, n_nodes)
+    if return_pos:
+        pos_shards = [p.cpu().numpy().astype(np.int32) for p in pos_sh]
+        return fmin_bv, global_offsets, stats, (pos_shards, Mn)
+    return fmin_bv, global_offsets, stats
+
+
+def sharded_index_build(seqs, k: int, mesh=None, n_devices: Optional[int] = None,
+                        devices=None):
+    """End-to-end mesh-sharded finimizer index: the sample-sort SBWT
+    (sharded_sbwt_build), the node-sharded LCS (parallel.mesh.
+    sharded_lcs_fn), the mesh finimizer selection
+    (sharded_finimizer_select). The host keeps the O(n_unitigs * k)
+    control plane (unitig permutation, prefix candidates). Equals
+    FinimizerIndexBuilder's index (tests/test_torch_shard_build.py), and
+    carries index.mesh_pos for parallel.mesh.ShardedIndex.build."""
+    from finito_tpu_torch.index.index import FinimizerIndex
+    from finito_tpu_torch.index.packed_strings import permute_unitigs
+    from finito_tpu_torch.io.seqdb import SeqDB
+    from finito_tpu_torch.parallel.mesh import Mesh, sharded_lcs_fn
+    from finito_tpu_torch.utils.bits import bit_width_for_max
+
+    devs = flat_devices(mesh, n_devices, devices)
+    if not isinstance(seqs, SeqDB):
+        unitigs = SeqDB.from_sequences([s if isinstance(s, bytes) else s.encode() for s in seqs])
+    else:
+        unitigs = seqs
+    sbwt, node_keys = sharded_sbwt_build(
+        [unitigs.get_codes(i) for i in range(len(unitigs))], k, devices=devs, return_keys=True,
+    )
+    grid = np.empty((1, len(devs)), dtype=object)
+    grid[0, :] = devs
+    LCS = sharded_lcs_fn(Mesh(grid), sbwt)
+    packed, ustart, _perm = permute_unitigs(sbwt, unitigs)
+    fmin_bv, global_offsets, stats, mesh_pos = sharded_finimizer_select(
+        sbwt, LCS, packed, node_keys, devs, return_pos=True
+    )
+    index = FinimizerIndex()
+    index.mesh_pos = mesh_pos
+    index.sbwt = sbwt
+    index.LCS = np.asarray(LCS, dtype=np.int64)
+    index.lcs_width = bit_width_for_max(k - 1)
+    index.unitigs = packed
+    index.fmin = fmin_bv
+    index.global_offsets = global_offsets[fmin_bv == 1].astype(np.uint64)
+    index.offsets_width = bit_width_for_max(int(global_offsets.max()) if fmin_bv.size else 0)
+    index.Ustart = ustart
+    index.rebuild_rank_supports()
+    index.finimizer_stats = stats
+    return index

@@ -189,13 +189,14 @@ def _locate_dense(dsbwt: DeviceSBWT, loc_table: torch.Tensor, codes: torch.Tenso
     return _ranks_to_locations(loc_table, ranks)
 
 
-def _pad_codes(codes: np.ndarray) -> np.ndarray:
+def _pad_codes(codes: np.ndarray, min_rows: int = 1) -> np.ndarray:
     """Shape bucketing: L up to a multiple of 128 (at least 128), B up to
-    a power of two, padding with 255 (invalid, so padded windows are
-    absent)."""
+    a power of two and at least min_rows (a mesh's dp, so that a chunk of
+    1-2 reads still splits over dp), padding with 255 (invalid, so padded
+    windows are absent)."""
     B, L = codes.shape
     L_pad = max(128, -(-L // 128) * 128)
-    B_pad = 1 << max(0, (B - 1).bit_length())
+    B_pad = max(1 << max(0, (B - 1).bit_length()), min_rows)
     if (B_pad, L_pad) == (B, L):
         return codes
     padded = np.full((B_pad, L_pad), 255, dtype=np.uint8)
@@ -330,7 +331,8 @@ class DeviceQueryEngine:
         return self._mesh_locates[K]
 
     def _locate_mesh_async(self, codes: torch.Tensor):
-        """The mesh locate with JAX's capacity rule: B divisible by dp,
+        """The mesh locate with JAX's capacity rule: B divisible by dp
+        (_pad_codes pads B to at least dp, where JAX raises),
         first K = max(256, B*W/32), and a run whose n_slow exceeds K
         redone at 4x K up to B*W; the check is deferred to verify(), as
         in _locate_minimizer_async."""
@@ -455,7 +457,7 @@ class DeviceQueryEngine:
         and the (B, W) slice applies at readback. verify is None when
         the mode has nothing to check (dense)."""
         B, L = codes.shape
-        padded = _pad_codes(codes)
+        padded = _pad_codes(codes, self.mesh_shape[0] if self.mesh_shape else 1)
         uid, off, verify = self._locate_async(self._to_device(padded))
         return uid, off, B, L - self.k + 1, verify
 

@@ -1,0 +1,37 @@
+"""chip_smoke.py's analytic DSPSS oracle (analytic_expected) on the CPU:
+at k = 31 and at k = 63, where a unitig's first k bases do not fit one
+uint64, every window of every sampled read equals the host oracle
+FinimizerIndex.search of the port's host-built index. chip_smoke is
+imported as a module; its main runs only as a script."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from finito_tpu_torch.index.builder import FinimizerIndexBuilder
+from finito_tpu_torch.io.seqdb import SeqDB, decode_seq
+from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
+from finito_tpu_torch.sbwt.lcs import lcs_array
+
+
+@pytest.mark.parametrize("k", [31, 63])
+def test_analytic_expected_equals_host_oracle(k):
+    rng = np.random.default_rng(k)
+    genome, unitigs, cuts = chip_smoke.gen_dspss(rng, 6000, k, mean_unitig=300)
+    sb = build_plain_matrix_sbwt(unitigs, k)
+    index = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(unitigs)).get_index()
+    read_len, n_reads = 2 * k + 10, 40
+    starts = rng.integers(0, genome.size - read_len, size=n_reads)
+    reads = genome[starts[:, None] + np.arange(read_len)].copy()
+    mi = rng.integers(0, n_reads, size=30)
+    mj = rng.integers(0, read_len, size=30)
+    reads[mi, mj] = (reads[mi, mj] + rng.integers(1, 4, size=30)) % 4
+    want = chip_smoke.analytic_expected(index.unitigs.concat, index.unitigs.ends, genome, cuts,
+                                        starts, (mi, mj), k=k, read_len=read_len)
+    assert want.shape == (n_reads, read_len - k + 1, 2)
+    assert (want[..., 0] == -1).any() and (want[..., 0] >= 0).any()
+    for i in range(n_reads):
+        got = index.search(decode_seq(reads[i])).local_offsets
+        assert [tuple(p) for p in want[i].tolist()] == got

@@ -1,13 +1,15 @@
 """The port's CLI (finito_tpu_torch/cli.py, --device cpu) against the JAX
 CLI's search-fmin --engine minimizer: byte-identical output and
 <prefix>.stats, and <prefix>stats.txt equal in every field but the
-timing, on one device and with --mesh 4,2. Also: the port, kmer-mapper
-included, runs with jax imports blocked."""
+timing, on one device and with --mesh 4,2; unitigs --mesh 4 byte-
+identical to the JAX CLI's and to the host build. Also: the port,
+kmer-mapper included, runs with jax imports blocked."""
 
 from __future__ import annotations
 
 import gzip
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -198,9 +200,40 @@ def test_mesh_matches_single_and_jax(tmp_path):
     assert j_out.count(b"\n") == 17
 
 
+@pytest.mark.parametrize("mesh", ["8,1", "4,2"])
+def test_mesh_small_last_chunk(tmp_path, mesh):
+    """search-fmin --mesh on a 1-read and a 2-read query file: B = 2 or 4
+    rows, which dp = 8 or 4 does not divide. The JAX CLI raises; the port
+    pads B to dp with absent rows (ROADMAP C7) and writes the single-
+    device run's bytes, whose windows are the host oracle's."""
+    from finito_tpu_torch.index.index import FinimizerIndex
+    from finito_tpu_torch.io.fastx import reverse_complement
+
+    rng = np.random.default_rng(8)
+    k = 6
+    unitigs = gen_dspss(rng, 12, 12, 60, k)
+    prefix = _build(tmp_path, unitigs, k)
+    index = FinimizerIndex.load(prefix)
+    for reads in ([unitigs[0]], [unitigs[1][3:], "ACGTTGCAAGT"]):
+        q = tmp_path / "q.fna"
+        write_fasta(q, reads)
+        got, single = (_search(port_cli.main, prefix, q, tmp_path / f"p{i}.txt",
+                               ["--device", "cpu", *extra])[:2]
+                       for i, extra in enumerate((["--mesh", mesh], [])))
+        assert got == single
+        lines = got[0].decode().splitlines()
+        assert len(lines) == len(reads)
+        for r, line in zip(reads, lines):
+            fwd = index.search(r.encode()).local_offsets
+            rc = index.search(reverse_complement(r.encode())).local_offsets
+            want = [p if p[0] != -1 else rc[len(r) - k - i] for i, p in enumerate(fwd)]
+            assert line == " ".join(f"({u},{o})" for u, o in want)
+
+
 def test_unported_flags_fail(tmp_path, capsys):
-    """The JAX CLI's --mesh checks, word for word, and unitigs --mesh N
-    (the mesh build is not ported)."""
+    """The JAX CLI's --mesh checks, word for word; and unitigs --mesh N
+    without --device asks for the cards, so with none visible it fails
+    (exit code 1) and writes nothing, never building on the CPU."""
     prefix = _build(tmp_path, PAPER_UNITIGS, 4)
     q = tmp_path / "q.fna"
     write_fasta(q, ["AAGTAA"])
@@ -214,12 +247,70 @@ def test_unported_flags_fail(tmp_path, capsys):
     with pytest.raises(ValueError, match="--mesh requires the minimizer engine"):
         port_cli.main(["search-fmin", "-i", prefix, "-q", str(q), "--device", "cpu",
                        "--engine", "dense", "--mesh", "2,1"])
-    assert port_cli.main(["unitigs", "-k", "3", "-i", str(q), "-o", str(tmp_path / "u.fna"),
-                          "--mesh", "2"]) == 1
+    if not torch.cuda.is_available():
+        capsys.readouterr()
+        assert port_cli.main(["unitigs", "-k", "3", "-i", str(q), "-o", str(tmp_path / "um.fna"),
+                              "--mesh", "2"]) == 1
+        assert "none is visible" in capsys.readouterr().err
+        assert not (tmp_path / "um.fna").exists()
     # kmer-mapper without a subcommand: its usage, exit code 1
     capsys.readouterr()
     assert port_cli.main(["kmer-mapper"]) == 1
     assert "kmer-mapper query" in capsys.readouterr().err
+
+
+def _pangenome_fasta(path, seed, base_len, n_var, snp):
+    """A base genome and n_var copies with point substitutions, and an N
+    that splits one of them (tests/test_shard_dbg.py's shape)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=base_len, dtype=np.uint8)
+    seqs = [base]
+    for _ in range(n_var):
+        v = base.copy()
+        pos = rng.choice(base_len, size=max(1, int(snp * base_len)), replace=False)
+        v[pos] = (v[pos] + rng.integers(1, 4, size=pos.size)) % 4
+        seqs.append(v)
+    strs = ["".join("ACGT"[c] for c in v) for v in seqs]
+    strs[1] = strs[1][:700] + "N" + strs[1][701:]
+    write_fasta(path, strs)
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs the virtual 8-device mesh")
+def test_unitigs_mesh_matches_host_and_jax(tmp_path):
+    """unitigs --mesh 4 --device cpu (4 shards on the CPU): the file is
+    byte-identical to the JAX CLI's unitigs --mesh 4 (on its virtual
+    devices) and to the port's host unitigs; with --flip, to the host
+    unitigs --flip."""
+    fna = tmp_path / "pan.fna"
+    _pangenome_fasta(fna, 21, 1500, 3, 0.01)
+    outs = {}
+    for name, main, extra in (("jax", jax_cli.main, ["--mesh", "4"]),
+                              ("mesh", port_cli.main, ["--mesh", "4", "--device", "cpu"]),
+                              ("host", port_cli.main, []),
+                              ("mesh_flip", port_cli.main, ["--mesh", "4", "--device", "cpu",
+                                                            "--flip"]),
+                              ("host_flip", port_cli.main, ["--flip"])):
+        out = tmp_path / f"{name}.fna"
+        assert main(["unitigs", "-k", "21", "-i", str(fna), "-o", str(out), *extra]) == 0
+        outs[name] = out.read_bytes()
+    assert outs["mesh"] == outs["jax"] == outs["host"]
+    assert outs["mesh_flip"] == outs["host_flip"] != outs["host"]
+    assert outs["mesh"].count(b">") > 10
+
+
+def test_unitigs_mesh_refusals(tmp_path):
+    """The JAX CLI's unitigs --mesh checks, word for word."""
+    fna = tmp_path / "pan.fna"
+    _pangenome_fasta(fna, 5, 200, 1, 0.01)
+    base = ["unitigs", "-k", "11", "-i", str(fna), "-o", str(tmp_path / "u.fna"), "--mesh", "2"]
+    for extra, msg in ((["--mode", "simplitigs"], "--mode simplitigs: host canonical build only"),
+                       (["--forward-only"], "--mesh supports canonical mode only"),
+                       (["--min-multiplicity", "2"],
+                        "--min-multiplicity requires the host build (no --mesh)")):
+        for main, device in ((port_cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+            with pytest.raises(SystemExit, match=re.escape(msg)):
+                main(base + device + extra)
+    assert not (tmp_path / "u.fna").exists()
 
 
 BLOCKED = textwrap.dedent("""

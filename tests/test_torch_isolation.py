@@ -2,7 +2,9 @@
 jaxlib and bench.py blocked, every module of finito_tpu_torch imports,
 and the whole tiny pipeline runs through ``python -m
 finito_tpu_torch.cli`` on the CPU, each command with exit code 0
-(search-fmin with the minimizer and the stream engine, byte-identical)."""
+(search-fmin with the minimizer and the stream engine, byte-identical;
+unitigs --mesh 2 and the mesh index build on 2 CPU shards, byte-identical
+to the host builds)."""
 
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ BLOCKED = textwrap.dedent("""
         f.writelines(f">r{i}\\n{r}\\n" for i, r in enumerate(reads))
     p = lambda name: tmp + "/" + name
     cli("unitigs", "-k", "11", "-i", p("reads.fna"), "-o", p("u.fna"))
+    cli("unitigs", "-k", "11", "-i", p("reads.fna"), "-o", p("um.fna"), "--mesh", "2",
+        "--device", "cpu")
     cli("flip-unitigs", "-k", "11", "-i", p("u.fna"), "-o", p("f.fna"))
     cli("sbwt-build", "-k", "11", "-i", p("f.fna"), "-o", p("x.sbwt"))
     cli("convert-sbwt", "-i", p("x.sbwt"), "-o", p("a.sbwt"), "--to", "algbio")
@@ -75,6 +79,15 @@ BLOCKED = textwrap.dedent("""
     assert open(p("mesh.txt"), "rb").read() == open(p("out.txt"), "rb").read()
     assert open(p("km.txt")).read() == open(p("kmh.txt")).read()
     assert open(p("b.sbwt"), "rb").read() == open(p("x.sbwt"), "rb").read()
+    assert open(p("um.fna"), "rb").read() == open(p("u.fna"), "rb").read()
+    # the mesh index build, on 2 CPU shards, writes build-fmin's files
+    from finito_tpu_torch.io.fastx import read_all_records
+    from finito_tpu_torch.parallel.shard_build import sharded_index_build
+
+    seqs = [bytes(s) for _h, s in read_all_records(p("f.fna"))]
+    sharded_index_build(seqs, 11, devices=["cpu"] * 2).serialize(p("midx"))
+    for suffix in (".O.sdsl", ".FBV.sdsl", ".LCS.sdsl", ".sbwt", ".Ustart.sdsl"):
+        assert open(p("midx") + suffix, "rb").read() == open(p("idx") + suffix, "rb").read(), suffix
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
     assert not foreign, foreign
     print("ISOLATED OK")

@@ -170,3 +170,60 @@ def test_query_on_card_equals_cpu(fixture, monkeypatch, v2):
     monkeypatch.setenv("FINITO_MINIMIZER_V2", v2)
     want = _run(port_km.main, idx, q, tmp / "cpu.txt", ["-r", "--device", "cpu"])
     assert _run(port_km.main, idx, q, tmp / "cuda.txt", ["-r", "--device", "cuda"]) == want
+
+
+# The reference's example.fna (three unitigs under headers 2, 3, 1), written
+# inline: the twins of tests/test_kmer_mapper.py's checks that read it from
+# the reference checkout.
+EXAMPLE_FNA = ">2\nACAGGTA\n>3\nGTAGGAAA\n>1\nGTAAGTCT\n"
+
+
+@pytest.fixture(scope="module")
+def example_index(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("example")
+    (tmp / "example.fna").write_text(EXAMPLE_FNA)
+    idx = str(tmp / "idx")
+    assert port_km.main(["build", "-u", str(tmp / "example.fna"), "-k", "4", "-o", idx]) == 0
+    return idx
+
+
+def test_example_permutation_matches_colex(example_index):
+    """Unitigs in colex order of their first 4-mers (GTAA < ACAG < GTAG),
+    headers carried along."""
+    from finito_tpu_torch.index.minimizer import MinimizerIndex as PortMinimizerIndex
+    from finito_tpu_torch.io.seqdb import decode_seq
+
+    mi = PortMinimizerIndex.load(example_index)
+    start, seqs = 0, []
+    for e in mi.ends:
+        seqs.append(decode_seq(mi.concat[start : int(e)]).decode())
+        start = int(e)
+    assert seqs == ["GTAAGTCT", "ACAGGTA", "GTAGGAAA"]
+    assert mi.headers == [b"1", b"2", b"3"]
+
+
+@pytest.mark.parametrize("extra", [["--device", "cpu"], ["--host-exact"]])
+def test_example_query_output(example_index, tmp_path, extra):
+    q = tmp_path / "q.fna"
+    q.write_text(">q1\nACAGGTAAGT\n>q2\nTTTT\n")
+    lines = _run(port_km.main, example_index, str(q), tmp_path / "o.txt", extra).decode().splitlines()
+    # ACAGGTAAGT: windows map into ACAGGTA (uid 1) then GTAAGTCT (uid 0)
+    assert lines == ["(1,0) (1,1) (1,2) (1,3) (0,0) (0,1) (0,2)", "(-1,-1)"]
+
+
+@pytest.mark.parametrize("extra", [["--device", "cpu"], ["--host-exact"]])
+def test_example_query_rc_merge(example_index, tmp_path, extra):
+    """The reverse complement of GTAAGTCT is found only with -r, its
+    window w at forward window W-1-w."""
+    q = tmp_path / "q.fna"
+    q.write_text(">r\n" + reverse_complement(b"GTAAGTCT").decode() + "\n")
+    fwd = _run(port_km.main, example_index, str(q), tmp_path / "f.txt", extra).decode()
+    assert all(p == "(-1,-1)" for p in fwd.splitlines()[0].split())
+    merged = _run(port_km.main, example_index, str(q), tmp_path / "r.txt", [*extra, "-r"])
+    assert merged.decode().splitlines()[0] == "(0,4) (0,3) (0,2) (0,1) (0,0)"
+
+
+def test_example_extract_index_unitigs(example_index, tmp_path):
+    out = tmp_path / "out.fna"
+    assert port_km.main(["extract-index-unitigs", "-i", example_index, "-o", str(out)]) == 0
+    assert out.read_text() == ">1\nGTAAGTCT\n>2\nACAGGTA\n>3\nGTAGGAAA\n"

@@ -341,14 +341,31 @@ def test_mesh_engine_equals_single_and_jax(setup):
     assert DeviceQueryEngine(index, mesh=(1, 1), device="cpu").mesh_shape is None
 
 
-def test_mesh_engine_batch_not_divisible_by_dp(setup):
-    """B rounds up to a power of two, so a batch of one read (B = 2)
-    cannot split over dp = 4: JAX's error (ROADMAP C7)."""
+@pytest.mark.parametrize("mesh", [(4, 2), (8, 1)])
+def test_mesh_engine_batch_not_divisible_by_dp(setup, mesh):
+    """A chunk of 1 or 2 reads is B = 2 or 4 rows (both strands), which
+    dp = 4 or 8 does not divide: JAX raises "batch N not divisible by
+    dp"; the port pads B up to dp with absent rows (ROADMAP C7) and
+    answers as the single-device engine and the host oracle do."""
+    from finito_tpu_torch.io.fastx import reverse_complement
+
     index = setup[0]
-    eng = DeviceQueryEngine(index, mesh=(4, 2), device="cpu")
+    k = index.sbwt.get_k()
+    eng = DeviceQueryEngine(index, mesh=mesh, device="cpu")
+    single = DeviceQueryEngine(index, device="cpu")
     genome = "".join("ACGT"[c] for c in index.unitigs.concat)
-    with pytest.raises(ValueError, match="batch 2 not divisible by dp=4"):
-        eng.merged_pairs_flat([genome[:20].encode()])
+    for reads in ([genome[:20].encode()], [genome[5:30].encode(), b"ACGTACGTTTGCA"]):
+        got = eng.merged_pairs_flat(reads)
+        for a, b in zip(got, single.merged_pairs_flat(reads)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        # the host oracle's merged lines (the reference's fwd/RC merge)
+        want = []
+        for r in reads:
+            fwd = index.search(r).local_offsets
+            rc = index.search(reverse_complement(r)).local_offsets
+            want += [p if p[0] != -1 else rc[len(r) - k - i] for i, p in enumerate(fwd)]
+        assert list(zip(got[1].tolist(), got[2].tolist())) == want
+        assert got[0].tolist() == [len(r) - k + 1 for r in reads]
 
 
 def test_mesh_engine_modes_and_devices(setup):
