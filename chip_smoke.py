@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the port's main paths, ``search-fmin`` (every --engine, and the
-minimizer engine on (dp, tp) meshes), ``kmer-mapper query`` and the mesh
-builds (``sharded_index_build``, ``unitigs --mesh``), through the port's
-CLI and entry points, at realistic sizes, and checks every answer.
+minimizer engine on (dp, tp) meshes), ``kmer-mapper query``, the mesh
+builds (``sharded_index_build``, ``unitigs --mesh``) and the
+device-resident pipeline of every engine, through the port's CLI and
+entry points, at realistic sizes, and checks every answer.
 Phases, one line or more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
@@ -71,7 +72,21 @@ Phases, one line or more each:
         (g., h.): seconds per phase, overflow retries, node and k-mer
         counts, peak device memory, host peak RSS, the host build's time;
      i. run_distributed_queries in 2 processes on cuda:0 joined by gloo:
-        the merged file byte-identical to the single run and to a.'s.
+        the merged file byte-identical to the single run and to a.'s;
+     j. the device-resident pipeline (DeviceQueryEngine.make_device_pipeline)
+        on one batch of 8192 forward reads put on the card once, by
+        bench.py run_rung's protocol (pipeline_cell): at 1 Mbp the
+        minimizer engine's v1 and v2 forced, then the builder's device
+        fallback (FinimizerIndexBuilder without node keys on the card:
+        files byte-identical to build-fmin's); at 4,641,652 bp the
+        minimizer (v2), dense, stream and replica engines (the last
+        three those d. built), then the in-scan replica twin
+        (make_replica_locate) on 1,024 of the reads. Every window against
+        the analytic oracle, windows/s, slow_frac, capacities, host syncs
+        per call, the device-busy share; one JSON line a pipeline;
+  5. the repeat-dense cell: gen_repeat_genome(4,000,000, REPEAT_PARAMS),
+     its non-canonical dBG unitigs and index, then j.'s four pipelines
+     and the twin, checked against the index-free kmer_location_oracle.
 
 Prints the kernels' JSON line (launches in total and per main-path run),
 the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
@@ -133,6 +148,19 @@ PANGENOME = (4_641_652, 4, 0.002, 31)
 # the files FinimizerIndex.serialize writes under a prefix
 INDEX_FILES = (".O.sdsl", ".FBV.sdsl", ".packed_unitigs.sdsl", ".unitig_endpoints.sdsl",
                ".Ustart.sdsl", ".LCS.sdsl", ".sbwt")
+# the device-resident pipeline (DeviceQueryEngine.make_device_pipeline),
+# bench.py run_rung's protocol: PIPE_BATCH forward reads of READ_LEN with
+# MUTATE point mutations, put on the card once
+PIPE_BATCH = 8192
+PIPE_VERIFY = 8  # reads per pipeline also held to FinimizerIndex.search
+PIPE_TIMED_S = 2.0  # aimed seconds of a pipeline's timed calls, trials together
+PIPE_TRIALS = 3
+TWIN_READS = 1024  # reads of the in-scan replica twin (make_replica_locate)
+# the repeat-dense cell: utils.synth.gen_repeat_genome with bench.py's
+# REPEAT_PARAMS (bench.py:47, copied: the script imports nothing of
+# bench), non-canonical dBG unitigs at k = K
+REPEAT_LEN = 4_000_000
+REPEAT_PARAMS = dict(seg_frac=0.35, snp_rate=0.004, div_rate=0.04)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
@@ -366,7 +394,7 @@ def gen_dspss(rng, genome_len: int, k: int, mean_unitig: int = 2000):
 
 def build_index(genome_len: int, seed: int, work: str):
     """DSPSS genome -> unitig FASTA -> sbwt-build + build-fmin through the
-    port's CLI. Returns (genome, cuts, index prefix)."""
+    port's CLI. Returns (genome, cuts, index prefix, build seconds)."""
     from finito_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -381,9 +409,23 @@ def build_index(genome_len: int, seed: int, work: str):
             raise RuntimeError("sbwt-build failed")
         if cli.main(["build-fmin", "-o", prefix, "-i", sbwt, "-u", fna]) != 0:
             raise RuntimeError("build-fmin failed")
+    build_s = time.perf_counter() - t0
     log(f"index {genome_len} bp: {len(unitigs)} unitigs, host build "
-        f"{time.perf_counter() - t0} s (gen_dspss + sbwt-build + build-fmin)")
-    return genome, cuts, prefix
+        f"{build_s} s (gen_dspss + sbwt-build + build-fmin)")
+    return genome, cuts, prefix, build_s
+
+
+def sample_reads(rng, genome: np.ndarray, B: int):
+    """B reads of READ_LEN sampled from the genome with MUTATE point
+    mutations (bench.py:237-243). Returns (starts, reads, mutations)."""
+    L = READ_LEN
+    starts = rng.integers(0, genome.size - L, size=B)
+    reads = genome[starts[:, None] + np.arange(L)[None, :]].copy()
+    n_mut = int(MUTATE * reads.size)
+    mi = rng.integers(0, B, size=n_mut)
+    mj = rng.integers(0, L, size=n_mut)
+    reads[mi, mj] = (reads[mi, mj] + rng.integers(1, 4, size=n_mut)) % 4
+    return starts, reads, (mi, mj)
 
 
 def make_queries(rng, genome: np.ndarray, n_reads: int, path: str):
@@ -392,12 +434,7 @@ def make_queries(rng, genome: np.ndarray, n_reads: int, path: str):
     reads as bytes)."""
     from finito_tpu_torch.io.seqdb import decode_seq
 
-    starts = rng.integers(0, genome.size - READ_LEN, size=n_reads)
-    reads = genome[starts[:, None] + np.arange(READ_LEN)[None, :]].copy()
-    n_mut = int(MUTATE * reads.size)
-    mi = rng.integers(0, n_reads, size=n_mut)
-    mj = rng.integers(0, READ_LEN, size=n_mut)
-    reads[mi, mj] = (reads[mi, mj] + rng.integers(1, 4, size=n_mut)) % 4
+    starts, reads, (mi, mj) = sample_reads(rng, genome, n_reads)
     extra = []
     for n in (1, 10, K - 1, K, K + 1):  # short reads and the k boundary
         s = int(rng.integers(0, genome.size - n))
@@ -708,12 +745,13 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
     return res
 
 
-def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both) -> None:
+def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     """search-fmin --engine mode --device cuda through the port's CLI:
     every window against the analytic oracle and sampled reads against
     the host oracle (check), the output byte-identical to the minimizer
     run's (out.txt), the engine's table build, wall, µs/query, peak
-    memory; then one CLI chunk's locate and phases (engine_batch)."""
+    memory; then one CLI chunk's locate and phases (engine_batch).
+    Returns (the engine the CLI built, its table seconds)."""
     import torch
 
     from finito_tpu_torch import cli
@@ -748,8 +786,314 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both) -> N
            "lcs_jump_tables_s": jumps_s, "wall_s": wall,
            "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak, "batch": batch}
     log(json.dumps(row))
-    del eng, built
-    torch.cuda.empty_cache()
+    return eng, build_s
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA operations (device-to-host reads and
+    blocking copies) of one call of fn, as torch.cuda.set_sync_debug_mode
+    reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def device_busy(fn) -> dict:
+    """One call of fn under torch.profiler, after a warm-up call: the
+    device time of the operations it launched (kernels and copies), their
+    count, the call's wall on the host clock (synchronised) and the
+    device-busy share, their ratio (the profiler slows the host side, so
+    the share is a lower bound)."""
+    import torch
+
+    box = {}
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        box["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    prof = phase_profile(timed, [])["all"]
+    return {"device_ms": prof["device_ms"], "launches": prof["launches"],
+            "wall_ms": box["wall_ms"], "busy": prof["device_ms"] / box["wall_ms"]}
+
+
+@contextlib.contextmanager
+def front_recorded():
+    """The front-end kernel's launch count set to 0, and every input the
+    minimizer locates give it on the card recorded while the block runs
+    (by reference: a pipeline's input is not written meanwhile); yields
+    the list of (codes, k, m)."""
+    import torch
+
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.query import minimizer_engine
+
+    seen = []
+
+    def recorded(codes, k, m):
+        if codes.is_cuda:
+            seen.append((codes, k, m))
+        return minimizer_windows(codes, k, m)
+
+    torch.cuda.synchronize()
+    minimizer_windows.launches = 0
+    minimizer_engine.minimizer_windows = recorded
+    try:
+        yield seen
+    finally:
+        minimizer_engine.minimizer_windows = minimizer_windows
+
+
+def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index) -> tuple:
+    """bench.py run_rung's protocol (bench.py:236-368) on the port's
+    device-resident step, eng.make_device_pipeline, for one built
+    engine: unknown_frac 0.02 (stream, replica) or 0.10; one call, then
+    one re-size to frac = max(0.005, 1.3 n / (B W)) unless K/2 <= n <= K;
+    fail if n > K or n_heads > K_heads after it; every window against
+    expected ((uid, off): the analytic DSPSS oracle or the index-free
+    oracle) and PIPE_VERIFY reads against FinimizerIndex.search; the
+    synchronizing operations of one call (whose wall sizes reps);
+    PIPE_TRIALS trials of reps
+    calls chained through an on-device checksum read once at the end
+    (the minimum kept); one call under torch.profiler. The front-end
+    kernel's launches are counted from 0 over the whole protocol and held
+    bit for bit to the plain version on every input. One JSON line.
+    Returns (the launches, the checked call's (uid, off) on the card)."""
+    import torch
+
+    from finito_tpu_torch.io.seqdb import decode_seq
+    from finito_tpu_torch.ops import streaming
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.query.engine import pick_v2
+
+    mode = eng.mode
+    B, L = reads_dev.shape
+    W = L - K + 1
+    form = ("v2" if pick_v2(eng._dmi) else "v1") if mode == "minimizer" else None
+    forced = os.environ.get("FINITO_MINIMIZER_V2") == "1" and mode == "minimizer"
+    what = (f"pipeline {mode}{' ' + form if form else ''}{' (forced)' if forced else ''} "
+            f"{info['cell']}")
+    frac0 = frac = 0.02 if mode in ("stream", "replica") else 0.10
+    with front_recorded() as seen:
+        pipe = eng.make_device_pipeline(B, L, unknown_frac=frac)
+        out = pipe(reads_dev)
+        n, K0 = int(out[2]), pipe.K
+        if mode != "dense" and not (pipe.K // 2 <= n <= pipe.K):
+            frac = max(0.005, 1.3 * n / (B * W))
+            pipe = eng.make_device_pipeline(B, L, unknown_frac=frac)
+            out = pipe(reads_dev)
+            n = int(out[2])
+        if n > pipe.K:
+            raise AssertionError(f"{what}: {n} unknowns over K = {pipe.K} after the re-size")
+        n_heads = int(out[3]) if pipe.K_heads else None
+        if n_heads is not None and n_heads > pipe.K_heads:
+            raise AssertionError(f"{what}: {n_heads} run heads over K_heads = {pipe.K_heads}")
+        uid, off = out[0].cpu().numpy(), out[1].cpu().numpy()
+        bad = int(((uid != expected[0]) | (off != expected[1])).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} windows disagree with {info['oracle']}")
+        for b in range(0, B, B // PIPE_VERIFY):
+            want = index.search(decode_seq(reads[b])).local_offsets
+            if list(zip(uid[b].tolist(), off[b].tolist())) != want:
+                raise AssertionError(f"{what}: read {b} disagrees with FinimizerIndex.search")
+        r0 = streaming.straggler_pending.reads
+        t0 = time.perf_counter()
+        syncs = host_syncs(lambda: pipe(reads_dev))
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        stragglers = streaming.straggler_pending.reads - r0
+
+        def chained(reps):
+            s = torch.zeros((), dtype=torch.int64, device=reads_dev.device)
+            for _ in range(reps):
+                o = pipe(reads_dev)
+                s = s + o[0].sum(dtype=torch.int64) + o[1].sum(dtype=torch.int64)
+            return int(s)
+
+        reps = max(1, min(50, int(PIPE_TIMED_S / PIPE_TRIALS / t_call)))
+        dt = float("inf")
+        for _ in range(PIPE_TRIALS):
+            t0 = time.perf_counter()
+            chained(reps)
+            dt = min(dt, time.perf_counter() - t0)
+        busy = device_busy(lambda: pipe(reads_dev))
+        launches = minimizer_windows.launches
+    log(f"check {what}: all {B * W} windows of {B} reads equal {info['oracle']}, "
+        f"{PIPE_VERIFY} reads equal FinimizerIndex.search")
+    if mode == "minimizer":
+        if launches <= 0:
+            raise AssertionError(f"{what}: the front-end kernel was not launched")
+        check_inputs(what, seen, launches)
+    elif launches:
+        raise AssertionError(f"{what}: {launches} front-end launches on a path without it")
+    ms = dt / reps * 1e3
+    log(json.dumps({
+        "pipeline": mode, "form": form, "forced_v2": forced, **info, "B": B, "L": L, "W": W,
+        "unknown_frac": [frac0, frac], "K_first": K0, "K": pipe.K, "n_unknown": n,
+        "slow_frac": n / (B * W), "K_heads": pipe.K_heads, "n_heads": n_heads,
+        "found_frac": float((uid >= 0).mean()), "reps": reps, "trials": PIPE_TRIALS,
+        "dt_s": dt, "ms_per_call": ms, "windows_per_s": reps * B * W / dt,
+        "host_syncs_per_call": syncs, "straggler_reads_per_call": stragglers,
+        "device_ms_per_call": busy["device_ms"], "operations_per_call": busy["launches"],
+        "device_busy_profiled": busy["busy"], "device_busy": busy["device_ms"] / ms,
+        "front_end_launches": launches}))
+    return launches, out[:2]
+
+
+def twin_phase(index, info: dict, reads_dev, rep_out, expected) -> None:
+    """The in-scan replica twin (make_replica_locate) on the first
+    TWIN_READS reads of the pipeline batch on the card: equal to the
+    replica pipeline's rows (rep_out) and to the oracle (expected); the
+    seconds of its tables and of its locate (with the sync counter on)
+    and its synchronizing operations. One JSON line."""
+    import torch
+
+    from finito_tpu_torch.query.replica import make_replica_locate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    locate = make_replica_locate(index, DEVICE)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    codes = reads_dev[:TWIN_READS]
+    box = {}
+    t0 = time.perf_counter()
+    syncs = host_syncs(lambda: box.update(out=locate(codes)))
+    torch.cuda.synchronize()
+    locate_s = time.perf_counter() - t0
+    uid, off = box["out"]
+    what = f"in-scan replica twin {info['cell']}"
+    if not (torch.equal(uid, rep_out[0][:TWIN_READS]) and torch.equal(off, rep_out[1][:TWIN_READS])):
+        raise AssertionError(f"{what}: differs from the replica pipeline's rows")
+    if not (np.array_equal(uid.cpu().numpy(), expected[0][:TWIN_READS])
+            and np.array_equal(off.cpu().numpy(), expected[1][:TWIN_READS])):
+        raise AssertionError(f"{what}: differs from {info['oracle']}")
+    log(f"check {what}: {TWIN_READS} reads equal the replica pipeline's rows and {info['oracle']}")
+    log(json.dumps({"twin": "make_replica_locate", **info, "reads": TWIN_READS, "L": READ_LEN,
+                    "tables_s": tables_s, "locate_s": locate_s, "host_syncs": syncs,
+                    "windows_per_s": TWIN_READS * (READ_LEN - K + 1) / locate_s}))
+
+
+def builder_fallback_phase(index, prefix: str, fna: str, work: str) -> None:
+    """FinimizerIndexBuilder without node keys on the card (the windows
+    ranked by search_batch_device in chunks of 2^20): its 7 files
+    byte-identical to build-fmin's (prefix); the build's seconds, and the
+    rank step alone over the same windows on the card and on the host
+    (sbwt.search_batch), with equal ranks. One JSON line."""
+    import torch
+
+    from finito_tpu_torch.index.builder import FinimizerIndexBuilder
+    from finito_tpu_torch.io.seqdb import SeqDB
+    from finito_tpu_torch.ops.bitvec import DeviceSBWT, search_batch_device
+
+    sb = index.sbwt
+    db = SeqDB.from_file(fna)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = FinimizerIndexBuilder(sb, index.LCS, db, node_keys=None, device=DEVICE).get_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fprefix = os.path.join(work, "fallback_idx")
+    built.serialize(fprefix)
+    for suffix in INDEX_FILES:
+        with open(fprefix + suffix, "rb") as f, open(prefix + suffix, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"builder fallback on {DEVICE}: {suffix} differs from "
+                                     "build-fmin's")
+    concat = np.asarray(index.unitigs.concat)
+    ends = np.asarray(index.unitigs.ends, np.int64)
+    pos = np.arange(concat.size - K + 1)
+    vpos = pos[pos + K <= ends[np.searchsorted(ends, pos, side="right")]]
+    windows = np.lib.stride_tricks.sliding_window_view(concat, K)[vpos]
+    CH = 1 << 20
+    dsbwt = DeviceSBWT.from_host(sb, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = np.concatenate([
+        search_batch_device(dsbwt, torch.from_numpy(np.ascontiguousarray(windows[s : s + CH]))
+                            .to(DEVICE)).cpu().numpy() for s in range(0, vpos.size, CH)])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = np.concatenate([sb.search_batch(np.ascontiguousarray(windows[s : s + CH]))
+                           for s in range(0, vpos.size, CH)])
+    host_s = time.perf_counter() - t0
+    if not np.array_equal(card, host) or (card < 0).any():
+        raise AssertionError("search_batch_device and sbwt.search_batch disagree")
+    log(f"check builder fallback {concat.size} bp: FinimizerIndexBuilder(node_keys=None, "
+        f"device={DEVICE!r}) writes build-fmin's {len(INDEX_FILES)} files byte for byte")
+    log(json.dumps({"builder_fallback": int(concat.size), "device": DEVICE, "build_s": build_s,
+                    "windows": int(vpos.size), "rank_card_s": card_s, "rank_host_s": host_s}))
+
+
+def repeat_phase(seed: int) -> dict:
+    """The repeat-dense cell: gen_repeat_genome(REPEAT_LEN,
+    **REPEAT_PARAMS), its non-canonical dBG unitigs, the index by
+    build_plain_matrix_sbwt(return_keys=True) + lcs_array +
+    FinimizerIndexBuilder(node_keys=...); then the pipeline of every
+    engine mode on one batch (pipeline_cell, checked against
+    kmer_location_oracle) and the in-scan twin (twin_phase). Returns the
+    front-end launches of each pipeline."""
+    import torch
+
+    from finito_tpu_torch.dbg import build_unitigs
+    from finito_tpu_torch.index.builder import FinimizerIndexBuilder
+    from finito_tpu_torch.io.seqdb import SeqDB, decode_seq
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+    from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
+    from finito_tpu_torch.sbwt.lcs import lcs_array
+    from finito_tpu_torch.utils.synth import gen_repeat_genome, kmer_location_oracle
+
+    t0 = time.perf_counter()
+    genome = gen_repeat_genome(np.random.default_rng(seed + 11), REPEAT_LEN, **REPEAT_PARAMS)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unitigs = [decode_seq(u) for u in build_unitigs([genome], K, canonical=False)]
+    dbg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb, keys = build_plain_matrix_sbwt(unitigs, K, return_keys=True)
+    index = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(unitigs),
+                                  node_keys=keys).get_index()
+    build_s = time.perf_counter() - t0
+    del keys
+    info = {"cell": f"repeat {REPEAT_LEN} bp", "index_bp": REPEAT_LEN,
+            "nodes": sb.number_of_subsets(), "index_build_s": build_s,
+            "oracle": "kmer_location_oracle"}
+    log(f"index {info['cell']} ({REPEAT_PARAMS}): gen_repeat_genome {gen_s} s, "
+        f"{len(unitigs)} unitigs by build_unitigs (non-canonical) {dbg_s} s, "
+        f"{info['nodes']} nodes, index build {build_s} s")
+    _, reads, _ = sample_reads(np.random.default_rng(seed + 12), genome, PIPE_BATCH)
+    t0 = time.perf_counter()
+    expected = kmer_location_oracle(index.unitigs.concat, index.unitigs.ends, reads, K)
+    log(f"kmer_location_oracle {info['cell']}: {reads.shape[0]} reads in "
+        f"{time.perf_counter() - t0} s")
+    reads_dev = torch.from_numpy(reads).to(DEVICE)
+    launches = {}
+    for mode in ("minimizer", "dense", "stream", "replica"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = DeviceQueryEngine(index, mode=mode, device=DEVICE)
+        torch.cuda.synchronize()
+        n, out = pipeline_cell(eng, {**info, "engine_s": time.perf_counter() - t0}, reads,
+                               reads_dev, expected, index)
+        launches[f"pipeline {mode} {info['cell']}"] = n
+        if mode == "replica":
+            twin_phase(index, info, reads_dev, out, expected)
+        del eng, out
+        torch.cuda.empty_cache()
+    return launches
 
 
 def run_counted(main, argv, seen=None):
@@ -1458,11 +1802,14 @@ def dist_phase(genome_len: int, prefix: str, qpath: str, work: str, index) -> No
 
 def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
     """One index size end to end; returns the front-end kernel launches
-    of each of its main-path runs (search-fmin and kmer-mapper query),
-    and of each mesh's search-fmin run."""
-    from finito_tpu_torch.io.seqdb import decode_seq
+    of each of its main-path runs (search-fmin, kmer-mapper query, the
+    device-resident pipelines), and of each mesh's search-fmin run."""
+    import torch
 
-    genome, cuts, prefix = build_index(genome_len, seed, work)
+    from finito_tpu_torch.io.seqdb import decode_seq
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+
+    genome, cuts, prefix, build_s = build_index(genome_len, seed, work)
     rng = np.random.default_rng(seed + 1)
     qpath = os.path.join(work, "q.fna")
     starts, mutations, extra, reads = make_queries(rng, genome, n_reads, qpath)
@@ -1508,10 +1855,45 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
         log(f"  {name}: {f['ms']} ms per batch, {t['windows'] / (f['ms'] / 1e3)} windows/s, "
             + ", ".join(f"{c} {f[c]}" for c in ("n_slow", "K_slow", "n_heads", "K_heads") if c in f))
     log(f"  peak device memory {t['peak_mib']} MiB")
+
+    # the device-resident pipelines on one batch put on the card once
+    p_starts, p_reads, p_mut = sample_reads(np.random.default_rng(seed + 3), genome, PIPE_BATCH)
+    p_want = analytic_expected(index.unitigs.concat, index.unitigs.ends, genome, cuts, p_starts,
+                               p_mut)
+    p_want = (p_want[..., 0], p_want[..., 1])
+    p_dev = torch.from_numpy(p_reads).to(DEVICE)
+    info = {"cell": f"DSPSS {genome_len} bp", "index_bp": genome_len,
+            "nodes": index.sbwt.number_of_subsets(), "index_build_s": build_s,
+            "oracle": "the analytic DSPSS oracle"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = DeviceQueryEngine(index, device=DEVICE)
+    torch.cuda.synchronize()
+    pinfo = {**info, "engine_s": time.perf_counter() - t0}
+    n, _ = pipeline_cell(eng, pinfo, p_reads, p_dev, p_want, index)
+    launches[f"pipeline minimizer {'v2' if eng.use_v2 else 'v1'} {genome_len} bp"] = n
+    if not eng.use_v2:  # the 1 Mbp cell: v2 forced on the same engine
+        os.environ["FINITO_MINIMIZER_V2"] = "1"
+        try:
+            n, _ = pipeline_cell(eng, pinfo, p_reads, p_dev, p_want, index)
+        finally:
+            del os.environ["FINITO_MINIMIZER_V2"]
+        launches[f"pipeline minimizer v2 (forced) {genome_len} bp"] = n
+        builder_fallback_phase(index, prefix, os.path.join(work, "unitigs.fna"), work)
+    del eng
+    torch.cuda.empty_cache()
+
     mesh_launches = {}
     if genome_len == ENGINES_AT:
         for mode in ENGINE_MODES:
-            engine_phase(mode, genome_len, prefix, qpath, work, check, index, both)
+            eng, tables_s = engine_phase(mode, genome_len, prefix, qpath, work, check, index, both)
+            n, out = pipeline_cell(eng, {**info, "engine_s": tables_s}, p_reads, p_dev, p_want,
+                                   index)
+            launches[f"pipeline {mode} {genome_len} bp"] = n
+            if mode == "replica":
+                twin_phase(index, info, p_dev, out, p_want)
+            del eng, out
+            torch.cuda.empty_cache()
         mesh_launches = mesh_phase(genome_len, prefix, qpath, work, check, index, both)
         launches["search-fmin --mesh"] = sum(mesh_launches.values())
         lcs_phase(genome_len, index)
@@ -1582,6 +1964,7 @@ def main() -> int:
             by_path, by_mesh = index_phase(genome_len, args.seed, N_READS, work)
             launches.update(by_path)
             mesh_launches.update(by_mesh)
+    launches.update(repeat_phase(args.seed))
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     if foreign:

@@ -12,13 +12,18 @@ Layout mirrors finito_tpu:
   io/      sdsl, seqdb, fastx, algbio_sbwt, kmidx
   sbwt/    plain-matrix SBWT, k-mer keys, construction, LCS
   index/   packed_strings, FinimizerIndex, MinimizerIndex, builder
+  utils/synth        the repeat-dense workload and its index-free oracle
   ops/     bits (32-bit word convention), minimizer_front (front-end
            kernel + plain version), streaming (compact_mask), _build
   csrc/    hand-written CUDA kernels for sm_90a
   query/   oracle, minimizer_tables (numpy table builders),
            minimizer_engine (device index + v1/v2 locate), engine
-           (DeviceQueryEngine)
+           (DeviceQueryEngine, make_device_pipeline)
   dbg, stats_modes   unitig construction, build-fmin's stats modes
   cli, kmer_mapper   the command line (host commands on the CPU,
                      search-fmin and kmer-mapper on --device)
 """
+
+from finito_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -300,6 +300,10 @@ def build_fmin(argv: List[str]) -> int:
     p.add_argument("--type", default="rarest", choices=AVAILABLE_TYPES)
     p.add_argument("-t", type=int, default=1, help="Maximum finimizer frequency")
     p.add_argument("--lcs", default="", help="Optional precomputed LCS file")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the SBWT search that ranks the windows when the "
+                   ".sbwt does not match the unitigs (default cuda; cpu runs it on the "
+                   "CPU). The usual build ranks them on the host and touches no device.")
     args = p.parse_args(argv)
 
     from finito_tpu_torch import stats_modes
@@ -398,7 +402,7 @@ def build_fmin(argv: List[str]) -> int:
             write_log(f"node-key reconstruction failed ({e}); using SBWT search",
                       LogLevel.MAJOR)
             node_keys = None
-        builder = FinimizerIndexBuilder(sbwt, LCS, db, node_keys=node_keys)
+        builder = FinimizerIndexBuilder(sbwt, LCS, db, node_keys=node_keys, device=args.device)
         index = builder.get_index()
         index.serialize(out_prefix)
         write_log(

@@ -98,10 +98,18 @@ class FinimizerIndexBuilder:
         unitigs: SeqDB,
         oracle: bool = False,
         node_keys=None,
+        device="cuda",
     ):
+        """node_keys: the SBWT's sorted node keys (sbwt.construct
+        return_keys=True); they give every window's colex rank by one
+        key merge on the host. Without them the fast path ranks the
+        windows by SBWT search on `device` ("cuda", "cuda:1", "cpu"),
+        which raises when a CUDA device is asked for and none is visible;
+        the device is touched only then."""
         from finito_tpu_torch.index.index import FinimizerIndex
 
         self.sbwt = sbwt
+        self.device = device
         self.LCS = np.asarray(LCS, dtype=np.int64)
 
         n_nodes = sbwt.number_of_subsets()
@@ -203,14 +211,24 @@ class FinimizerIndexBuilder:
                 ranks = kw.match_into(wk, node_keys)
                 del wk
             else:
-                # fallback: batched host SBWT search (the host builder
-                # stays on the host; the mesh build,
-                # parallel.shard_build, ranks the windows on the devices)
+                # fallback: batched SBWT search on the builder's device, in
+                # chunks of 2^20 windows (the JAX builder's accelerator
+                # search); torch is touched only here
+                import torch
+
+                from finito_tpu_torch.ops.bitvec import DeviceSBWT, search_batch_device
+
+                dev = torch.device(self.device)
+                if dev.type == "cuda" and not torch.cuda.is_available():
+                    raise RuntimeError(f"device {self.device!r} requested for the builder's "
+                                       "SBWT search but CUDA is not available")
+                dsbwt = DeviceSBWT.from_host(sbwt, dev)
                 windows = np.lib.stride_tricks.sliding_window_view(concat, k)[vpos]
                 ranks = np.empty(vpos.size, dtype=np.int64)
                 CH = 1 << 20
                 for s in range(0, vpos.size, CH):
-                    ranks[s : s + CH] = sbwt.search_batch(np.ascontiguousarray(windows[s : s + CH]))
+                    w = torch.from_numpy(np.ascontiguousarray(windows[s : s + CH])).to(dev)
+                    ranks[s : s + CH] = search_batch_device(dsbwt, w).cpu().numpy()
             if np.any(ranks < 0):
                 raise AssertionError("build: indexed window not found in SBWT")
             j_end = vpos + k - 1

@@ -15,9 +15,9 @@ The numpy table builders are the port's own copies:
   * the forward-edge automaton (plain, or augmented with the target
     node's shortest-unique-suffix length and Ustart bit).
 
-The device functions (rank24, select_C, update_interval24) take those
-tables as int32 tensors (ops.bits.put_i32) and compute on int64 words in
-[0, 2^32) (ops.bits).
+The device functions (rank24, select_C, update_interval24,
+widen_interval) take those tables as int32 tensors (ops.bits.put_i32)
+and compute on int64 words in [0, 2^32) (ops.bits).
 """
 
 from __future__ import annotations
@@ -244,3 +244,30 @@ def build_edge_table(bit_rows: np.ndarray, C, contract_k: np.ndarray) -> np.ndar
         hi = Ca[c] + r[ch + 1] - 1
         edge[:, c] = np.where(lo <= hi, lo, -1).astype(np.int32)
     return edge.reshape(-1)
+
+
+def widen_interval(jl, jr, lo, hi, new_len, n_nodes: int):
+    """Batched drop_first_char (ref common.hh:38-48) by packed jump hops:
+    one gather per hop and side. jl, jr: the jump tables as int32 bit
+    patterns (put_i32), each entry hop << 8 | LCS, the hop unpacked by a
+    logical shift (ops.bits). Empty intervals (lo < 0) pass through;
+    new_len <= 0 gives the full interval. The JAX while loops become
+    loops that stop when no lane hops, one host read a trip. Returns
+    int64 (lo, hi)."""
+    empty = lo < 0
+    full = (new_len <= 0) & ~empty
+    act0 = ~(empty | full)
+
+    def hops(table, x, sign, in_range):
+        act = act0
+        while bool(act.any()):
+            e = u32(table[torch.where(act, x, 0)])
+            act = act & in_range(x) & ((e & 0xFF) >= new_len)
+            x = torch.where(act, x + sign * (e >> 8), x)
+        return x
+
+    new_lo = hops(jl, torch.where(act0, lo, 0).to(torch.int64), -1, lambda x: x > 0)
+    new_hi = hops(jr, torch.where(act0, hi + 1, 0).to(torch.int64), 1, lambda x: x < n_nodes) - 1
+    out_lo = torch.where(empty, lo, torch.where(full, 0, new_lo))
+    out_hi = torch.where(empty, hi, torch.where(full, n_nodes - 1, new_hi))
+    return out_lo.to(torch.int64), out_hi.to(torch.int64)

@@ -24,6 +24,9 @@ O(runs), not O(windows). The serving split merged_pairs_flat_begin /
 _end keeps the dispatch half free of capacity checks: the minimizer's
 slow-path counters and the stream and replica engines' segment counts
 are read in _end (the deferred verify; dense has none).
+make_device_pipeline gives the bare device-resident step of every mode
+(reads already on the device, fixed capacities, no readback), the step
+a benchmark times.
 """
 
 from __future__ import annotations
@@ -441,6 +444,46 @@ class DeviceQueryEngine:
             return None if out is first else (out[0], out[1])
 
         return first[0], first[1], verify
+
+    def make_device_pipeline(self, batch: int, read_len: int, unknown_frac: float = 0.5):
+        """The device-resident query step (the JAX engine's
+        make_device_pipeline): pipe(codes), for (batch, read_len) uint8
+        codes already on this engine's device, returns device tensors
+        (uid, off, n_unknown[, n_heads]), with no padding, bucketing,
+        host copy or re-run. Results are valid only when n_unknown <=
+        pipe.K (and n_heads <= pipe.K_heads when that is set); the caller
+        re-sizes through unknown_frac. JAX's capacities, W = read_len - k + 1:
+          minimizer: K = max(256, B*W*frac) slow windows (v1) or slow runs
+            (v2, as pick_v2 decides), K_heads = max(1024, B*W*2.8/(k-m+2))
+            run heads in v2, None in v1;
+          dense: n_unknown is 0 and K = B*W;
+          stream, replica: K = max(1024, B*W*frac) repair segments.
+        The pipeline adds no host read: the minimizer locates read their
+        slow-path trip count, the stream and replica repairs their
+        straggler flags."""
+        if self.mesh_shape:
+            raise ValueError("make_device_pipeline has no mesh form (nor has the JAX engine); "
+                             "build the engine without mesh=")
+        BW = batch * (read_len - self.k + 1)
+        K_heads = None
+        if self.mode == "minimizer":
+            K = max(256, int(BW * unknown_frac))
+            if pick_v2(self._dmi):
+                K_heads = max(1024, int(BW * (2.8 / (self.k - self._dmi.m + 2))))
+                pipe = make_minimizer_locate_v2(self._dmi, K, K_heads)
+            else:
+                pipe = make_minimizer_locate(self._dmi, K)
+        elif self.mode == "dense":
+            K = BW
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+
+            def pipe(codes):
+                return (*_locate_dense(self.dsbwt, self.loc_table, codes, self.k), zero)
+        else:
+            K = max(1024, int(BW * unknown_frac))
+            pipe = self._make_segment_locate(K)
+        pipe.K, pipe.K_heads = K, K_heads
+        return pipe
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)

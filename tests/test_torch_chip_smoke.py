@@ -21,7 +21,8 @@ def test_analytic_expected_equals_host_oracle(k):
     rng = np.random.default_rng(k)
     genome, unitigs, cuts = chip_smoke.gen_dspss(rng, 6000, k, mean_unitig=300)
     sb = build_plain_matrix_sbwt(unitigs, k)
-    index = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(unitigs)).get_index()
+    index = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(unitigs),
+                                  device="cpu").get_index()
     read_len, n_reads = 2 * k + 10, 40
     starts = rng.integers(0, genome.size - read_len, size=n_reads)
     reads = genome[starts[:, None] + np.arange(read_len)].copy()
@@ -35,3 +36,28 @@ def test_analytic_expected_equals_host_oracle(k):
     for i in range(n_reads):
         got = index.search(decode_seq(reads[i])).local_offsets
         assert [tuple(p) for p in want[i].tolist()] == got
+
+
+def test_repeat_cell_parameters_equal_bench():
+    """chip_smoke.py keeps its own copy of bench.py's REPEAT_PARAMS (it
+    imports nothing of bench); the copy must not drift."""
+    from bench import REPEAT_PARAMS
+
+    assert chip_smoke.REPEAT_PARAMS == REPEAT_PARAMS
+
+
+def test_sample_reads_follows_bench():
+    """The CLI queries and the pipeline batch draw their reads and
+    mutations as bench.py's run_rung does, from the same rng calls in
+    the same order."""
+    genome = np.random.default_rng(1).integers(0, 4, 5000).astype(np.uint8)
+    B, L = 300, chip_smoke.READ_LEN
+    starts, reads, (mi, mj) = chip_smoke.sample_reads(np.random.default_rng(2), genome, B)
+    rng = np.random.default_rng(2)
+    s = rng.integers(0, genome.size - L, size=B)
+    want = genome[s[:, None] + np.arange(L)[None, :]].copy()
+    n_mut = int(chip_smoke.MUTATE * want.size)
+    a, b = rng.integers(0, B, size=n_mut), rng.integers(0, L, size=n_mut)
+    want[a, b] = (want[a, b] + rng.integers(1, 4, size=n_mut)) % 4
+    assert np.array_equal(starts, s) and np.array_equal(reads, want)
+    assert np.array_equal(mi, a) and np.array_equal(mj, b)

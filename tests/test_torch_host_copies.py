@@ -147,9 +147,10 @@ def test_index_load_reads_the_other_package(inputs, tmp_path, writer):
 
 
 def test_builder_host_rank_path_equals_key_merge(inputs, tmp_path):
-    """The port's builder resolves window ranks by host SBWT search when
-    it has no node keys (the JAX builder's accelerator fallback): the
-    same index files as with the key merge, and as the JAX builder's."""
+    """Without node keys the port's builder ranks the windows by SBWT
+    search on its device (here the CPU; the JAX builder's accelerator
+    fallback): the same index arrays and files as with the key merge,
+    and as the JAX builder's without node keys."""
     from finito_tpu.index.builder import FinimizerIndexBuilder as JaxBuilder
     from finito_tpu.io.seqdb import SeqDB as JaxSeqDB
     from finito_tpu.sbwt.construct import build_plain_matrix_sbwt as jax_build_sbwt
@@ -163,9 +164,12 @@ def test_builder_host_rank_path_equals_key_merge(inputs, tmp_path):
     out = {}
     sbwt, keys = build_plain_matrix_sbwt(seqs, K, return_keys=True)
     lcs = lcs_array(sbwt).astype(np.int64)
+    built = {}
     for name, nk in (("port-host", None), ("port-keys", keys)):
-        FinimizerIndexBuilder(sbwt, lcs, SeqDB.from_sequences(seqs), node_keys=nk).get_index() \
-            .serialize(str(tmp_path / name))
+        built[name] = FinimizerIndexBuilder(sbwt, lcs, SeqDB.from_sequences(seqs), node_keys=nk,
+                                            device="cpu").get_index()
+        built[name].serialize(str(tmp_path / name))
+    _same(vars(built["port-host"]), vars(built["port-keys"]))
     jsbwt = jax_build_sbwt(seqs, K)
     JaxBuilder(jsbwt, jax_lcs(jsbwt).astype(np.int64), JaxSeqDB.from_sequences(seqs)) \
         .get_index().serialize(str(tmp_path / "jax"))
@@ -173,6 +177,52 @@ def test_builder_host_rank_path_equals_key_merge(inputs, tmp_path):
         out[name] = {f[len(name):]: open(tmp_path / f, "rb").read()
                      for f in os.listdir(tmp_path) if f.startswith(name)}
     assert out["port-host"] == out["port-keys"] == out["jax"] and out["jax"]
+
+
+@pytest.fixture(scope="module")
+def superset_sbwt(inputs):
+    """A .sbwt of the DSPSS plus one more sequence, made by the JAX CLI:
+    build-fmin's reconstruction from the unitigs does not reproduce it,
+    so the builder ranks the windows by SBWT search."""
+    extra = "".join(np.random.default_rng(3).choice(list("ACGT"), 200))
+    fna = _write_fasta(inputs.dir / "superset.fna", inputs.unitigs + [extra])
+    out = str(inputs.dir / "superset.sbwt")
+    assert jax_cli.main(["sbwt-build", "-k", str(K), "-i", fna, "-o", out]) == 0
+    return out
+
+
+def test_build_fmin_device_fallback_equals_jax(inputs, superset_sbwt, tmp_path, capfd):
+    """build-fmin --device cpu where the .sbwt does not match the
+    unitigs: the fallback runs, and the files equal the JAX CLI's."""
+    got = {}
+    for name, main, extra in (("jax", jax_cli.main, []), ("port", port_cli.main,
+                                                         ["--device", "cpu"])):
+        (tmp_path / name).mkdir()
+        capfd.readouterr()
+        assert main(["build-fmin", "-i", superset_sbwt, "-u", inputs.dspss,
+                     "-o", str(tmp_path / name / "idx"), *extra]) == 0
+        assert "does not match the unitig set" in capfd.readouterr().err
+        got[name] = _files(tmp_path / name)
+    assert got["port"] == got["jax"] and len(got["jax"]) == 8
+
+
+def test_build_fmin_cuda_without_card_raises_only_in_fallback(inputs, superset_sbwt, tmp_path,
+                                                               capfd):
+    """build-fmin defaults to --device cuda: without a card the usual
+    build (node keys reproduced) runs on the host, and only the SBWT
+    search fallback fails, naming the device; it never falls back to
+    the host search."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    assert port_cli.main(["build-fmin", "-i", inputs.sbwt, "-u", inputs.dspss,
+                          "-o", str(tmp_path / "ok")]) == 0
+    capfd.readouterr()
+    assert port_cli.main(["build-fmin", "-i", superset_sbwt, "-u", inputs.dspss,
+                          "-o", str(tmp_path / "fb"), "--device", "cuda"]) == 1
+    assert "device 'cuda' requested" in capfd.readouterr().err
+    assert not os.path.exists(tmp_path / "fb.O.sdsl")
 
 
 def _pkg(name):

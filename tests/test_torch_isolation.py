@@ -4,7 +4,9 @@ and the whole tiny pipeline runs through ``python -m
 finito_tpu_torch.cli`` on the CPU, each command with exit code 0
 (search-fmin with the minimizer and the stream engine, byte-identical;
 unitigs --mesh 2 and the mesh index build on 2 CPU shards, byte-identical
-to the host builds)."""
+to the host builds); then the repeat-dense workload, the device-resident
+pipeline of every engine mode and the in-scan replica twin, against the
+index-free oracle."""
 
 from __future__ import annotations
 
@@ -88,6 +90,32 @@ BLOCKED = textwrap.dedent("""
     sharded_index_build(seqs, 11, devices=["cpu"] * 2).serialize(p("midx"))
     for suffix in (".O.sdsl", ".FBV.sdsl", ".LCS.sdsl", ".sbwt", ".Ustart.sdsl"):
         assert open(p("midx") + suffix, "rb").read() == open(p("idx") + suffix, "rb").read(), suffix
+    # the repeat workload, the device-resident pipeline of every mode and
+    # the in-scan replica twin, each held to the index-free oracle
+    import torch
+
+    from finito_tpu_torch.dbg import build_unitigs
+    from finito_tpu_torch.index.builder import FinimizerIndexBuilder
+    from finito_tpu_torch.io.seqdb import SeqDB, decode_seq
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+    from finito_tpu_torch.query.replica import make_replica_locate
+    from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
+    from finito_tpu_torch.sbwt.lcs import lcs_array
+    from finito_tpu_torch.utils.synth import gen_repeat_genome, kmer_location_oracle
+
+    g = gen_repeat_genome(rng, 60_000)
+    useqs = [decode_seq(u) for u in build_unitigs([g], 15, canonical=False)]
+    sb = build_plain_matrix_sbwt(useqs, 15)
+    rindex = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(useqs),
+                                   device="cpu").get_index()
+    rreads = g[rng.integers(0, g.size - 64, 16)[:, None] + np.arange(64)]
+    want = kmer_location_oracle(rindex.unitigs.concat, rindex.unitigs.ends, rreads, 15)
+    for mode in ("minimizer", "dense", "stream", "replica"):
+        pipe = DeviceQueryEngine(rindex, mode=mode, device="cpu").make_device_pipeline(16, 64)
+        out = pipe(torch.from_numpy(rreads))
+        assert np.array_equal(out[0].numpy(), want[0]) and np.array_equal(out[1].numpy(), want[1])
+    twin = make_replica_locate(rindex, device="cpu")(rreads)
+    assert np.array_equal(twin[0].numpy(), want[0]) and np.array_equal(twin[1].numpy(), want[1])
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
     assert not foreign, foreign
     print("ISOLATED OK")

@@ -245,3 +245,51 @@ def test_position_and_locate_tables_equal_jax(fixture):
     for a, b in zip(peng._ranks_to_locations(got_loc, torch.from_numpy(ranks)),
                     jeng._ranks_to_locations(jnp.asarray(want_loc), jnp.asarray(ranks))):
         _equal(a, b)
+
+
+def test_widen_interval_equals_jax(fixture):
+    """Random intervals (some empty, some full) and lengths (some <= 0,
+    some past every LCS value) on the fixture's jump tables."""
+    k, jindex, pindex = fixture
+    n = jindex.sbwt.number_of_subsets()
+    jl, jr = jr24.build_lcs_jump_tables(jindex.LCS)
+    rng = np.random.default_rng(13 + k)
+    _, lo, hi = _intervals(rng, n, 600)
+    full = rng.random(600) < 0.1
+    lo[full], hi[full] = 0, n - 1
+    new_len = rng.integers(-2, k + 2, 600)
+    want = jr24.widen_interval(jnp.asarray(jl), jnp.asarray(jr), jnp.asarray(lo, jnp.int32),
+                               jnp.asarray(hi, jnp.int32), jnp.asarray(new_len, jnp.int32), n)
+    pl, pr = pr24.build_lcs_jump_tables(pindex.LCS)
+    got = pr24.widen_interval(put_i32(pl, "cpu"), put_i32(pr, "cpu"), torch.from_numpy(lo),
+                              torch.from_numpy(hi), torch.from_numpy(new_len), n)
+    for a, b in zip(got, want):
+        _equal(a, b)
+    moved = (np.asarray(want[0]) != lo) | (np.asarray(want[1]) != hi)
+    assert moved[(lo >= 0) & (new_len > 0)].any()
+
+
+def test_widen_interval_hop_with_top_bit_set():
+    """A hand-made jump table whose hop fields reach 2^23 and more, so
+    the packed entries have their top bit set: the hops unpack by a
+    logical shift, as JAX's uint32 tables do."""
+    n = (1 << 23) + 16
+    big = (1 << 23) + 7
+    jl = np.zeros(n + 1, np.uint32)
+    jr = np.zeros(n + 1, np.uint32)
+    x = (1 << 23) + 10
+    jl[x] = (big << 8) | 9  # x -> 3
+    jl[3] = (2 << 8) | 6  # 3 -> 1
+    jr[5] = ((big + 1) << 8) | 8  # hi + 1 = 5 -> 2^23 + 13
+    assert jl[x] >= 1 << 31 and jr[5] >= 1 << 31
+    lo = np.array([x, x, 3, -1, x], np.int64)
+    hi = np.array([4, 4, 4, -1, n - 1], np.int64)
+    new_len = np.array([5, 8, 7, 5, 0], np.int64)
+    want = jr24.widen_interval(jnp.asarray(jl), jnp.asarray(jr), jnp.asarray(lo, jnp.int32),
+                               jnp.asarray(hi, jnp.int32), jnp.asarray(new_len, jnp.int32), n)
+    got = pr24.widen_interval(put_i32(jl, "cpu"), put_i32(jr, "cpu"), torch.from_numpy(lo),
+                              torch.from_numpy(hi), torch.from_numpy(new_len), n)
+    for a, b in zip(got, want):
+        _equal(a, b)
+    _equal(got[0], [1, 3, 3, -1, 0])
+    _equal(got[1], [(1 << 23) + 12] * 3 + [-1, n - 1])

@@ -108,3 +108,91 @@ def test_locate_v2_equals_jax_and_oracle(fixture, monkeypatch, edges, chunk):
     for b in clean:
         res = pindex.search(decode_seq(reads[b]))
         assert list(zip(uid[b].tolist(), off[b].tolist())) == res.local_offsets, b
+
+
+def _twin_inputs(seed):
+    """The inputs of tests/test_replica_engine.py's two-phase-vs-twin
+    checks: seed 41 (12 reads, every third with an invalid code) and
+    seed 52 (16 reads, every fourth); mutations and pad tails. Returns
+    (the JAX index, reads)."""
+    rng = np.random.default_rng(seed)
+    k = 6
+    unitigs = gen_dspss(rng, 12, 12, 60, k)
+    index = build_index(unitigs, k)
+    B, L = (12, 40) if seed == 41 else (16, 40)
+    reads = np.full((B, L), 255, np.uint8)
+    for b in range(B):
+        u = encode_seq(unitigs[int(rng.integers(len(unitigs)))].encode())
+        n = min(u.size, L)
+        reads[b, :n] = u[:n]
+        for _ in range(int(rng.integers(0, 4 if seed == 41 else 5))):
+            p = int(rng.integers(0, n))
+            reads[b, p] = (reads[b, p] + int(rng.integers(1, 4))) % 4
+        if seed == 41 and b % 3 == 0:
+            reads[b, int(rng.integers(0, n))] = 255
+        if seed == 52 and b % 4 == 0:
+            reads[b, int(rng.integers(0, L))] = 255
+    return index, reads
+
+
+@pytest.fixture(scope="module", params=[41, 52])
+def twin(request, tmp_path_factory):
+    """(JAX index, the port's index, reads, JAX's in-scan twin's (uid, off))"""
+    jindex, reads = _twin_inputs(request.param)
+    prefix = str(tmp_path_factory.mktemp(f"twin{request.param}") / "idx")
+    jindex.serialize(prefix)
+    want = [np.asarray(a) for a in jrep.make_replica_locate(jindex)(reads)]
+    return jindex, PortFinimizerIndex.load(prefix), reads, want
+
+
+def test_in_scan_twin_equals_jax(twin):
+    jindex, pindex, reads, want = twin
+    got = prep.make_replica_locate(pindex, device="cpu")(reads)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    for a, b in zip(got, want):
+        _equal(a, b)
+    k = pindex.sbwt.get_k()
+    uid, off = got[0].numpy(), got[1].numpy()
+    for b in range(reads.shape[0]):
+        if not np.any(reads[b] > 3):
+            res = jindex.search(decode_seq(reads[b]))
+            assert list(zip(uid[b].tolist(), off[b].tolist())) == res.local_offsets, b
+    assert uid.shape == (reads.shape[0], reads.shape[1] - k + 1)
+
+
+@pytest.mark.parametrize("chunk", [6, 8, 11, 40])
+def test_locate_v2_equals_in_scan_twin(twin, chunk):
+    """The two-phase form, at every chunk length of
+    tests/test_replica_engine.py, equal to the in-scan twin."""
+    _, pindex, reads, want = twin
+    K = reads.size
+    got = prep.make_replica_locate_v2(pindex, K_seg=K, chunk=chunk, device="cpu")(reads)
+    assert int(got[2]) <= K
+    for a, b in zip(got[:2], want):
+        _equal(a, b)
+
+
+def test_in_scan_twin_on_repeat_index_equals_oracle():
+    from finito_tpu_torch.utils.synth import kmer_location_oracle
+    from test_torch_synth import build_repeat_index, sample_reads
+
+    genome, index, _ = build_repeat_index()
+    reads = sample_reads(genome, np.random.default_rng(12), B=24, L=80)
+    reads[[3, 11], [40, 0]] = 255
+    got = prep.make_replica_locate(index, device="cpu")(torch.from_numpy(reads))
+    want = kmer_location_oracle(np.asarray(index.unitigs.concat), np.asarray(index.unitigs.ends),
+                                reads, index.sbwt.get_k())
+    for a, b in zip(got, want):
+        _equal(a, b)
+    assert (want[0] >= 0).any() and (want[0] < 0).any()
+
+
+@pytest.mark.cuda
+def test_in_scan_twin_on_card_equals_cpu(twin):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, pindex, reads, want = twin
+    got = prep.make_replica_locate(pindex, device="cuda")(torch.from_numpy(reads).cuda())
+    assert all(t.device.type == "cuda" for t in got)
+    for a, b in zip(got, want):
+        _equal(a.cpu(), b)

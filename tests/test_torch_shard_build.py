@@ -123,7 +123,7 @@ def test_sharded_sbwt_build_forced_overflow_retry():
 
 def _host_builder(spss, k):
     sb = build_plain_matrix_sbwt(spss, k)
-    return FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(spss))
+    return FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(spss), device="cpu")
 
 
 def _assert_index_equal(got, want):
