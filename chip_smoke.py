@@ -73,6 +73,17 @@ Phases, one line or more each:
         counts, peak device memory, host peak RSS, the host build's time;
      i. run_distributed_queries in 2 processes on cuda:0 joined by gloo:
         the merged file byte-identical to the single run and to a.'s;
+     i'. the mesh across processes: 2 workers (--xproc-worker), 2 shards
+        each on cuda:0, one global 4-shard mesh over a gloo group (and
+        over nccl, a card a rank, where two cards are visible): the
+        cross-process sharded_index_build (files byte-identical to
+        build-fmin's, each rank packing only its shards), the sharded
+        minimizer locate on (1, 4) and (2, 2) over b.'s (8192, 128) batch
+        (every window against kmer_location_oracle and the one-process
+        (1, 4) mesh; every front-end launch of each rank bit for bit
+        against the plain version) and sharded_lcs_fn (equal to the host
+        LCS); per rank one JSON line: wall per step, collectives, staged
+        bytes, host reads, peak device memory;
      j. the device-resident pipeline (DeviceQueryEngine.make_device_pipeline)
         on one batch of 8192 forward reads put on the card once, by
         bench.py run_rung's protocol (pipeline_cell): at 1 Mbp the
@@ -139,6 +150,12 @@ FOREIGN = ("finito_tpu", "bench", "jax", "jaxlib")
 # because the CLI's last chunk holds 2 reads (B = 4, ROADMAP C7)
 MESHES = ((1, 2), (2, 2), (1, 4))
 LCS_SHARDS = 4  # sharded_lcs_fn's mesh, every device cuda:0
+# the mesh across processes: 2 workers of XPROC_SHARDS shards each, one
+# global 4-shard mesh; (1, 4) puts tp across the processes, (2, 2) dp
+XPROC_SHARDS = 2
+XPROC_MESHES = ((1, 4), (2, 2))
+XPROC_STEPS = 5  # timed locate calls a mesh and rank
+XPROC_TIMEOUT = 300  # seconds of a worker, and of its group's collectives
 # the mesh build: shards of sharded_index_build and unitigs --mesh, every
 # one on cuda:0
 MESH_BUILD_SHARDS = 4
@@ -1800,6 +1817,241 @@ def dist_phase(genome_len: int, prefix: str, qpath: str, work: str, index) -> No
                     "single_s": single_s, "ranks": ranks}))
 
 
+def mesh_locate_once(fn_for, codes, K_slow: int):
+    """One call of a sharded minimizer locate at capacity K_slow, and
+    again at the reported n_slow when that overflowed (n_slow is the
+    same on every rank). fn_for(K) -> the locate. Returns (uid, off,
+    n_slow, the capacity that answered)."""
+    uid, off, n_slow = fn_for(K_slow)(codes)
+    if int(n_slow) > K_slow:
+        K_slow = int(n_slow)
+        uid, off, n_slow = fn_for(K_slow)(codes)
+    return uid, off, int(n_slow), K_slow
+
+
+def xproc_worker(argv) -> int:
+    """One rank of xproc_phase: join the group (gloo: both ranks on
+    cuda:0; nccl: cuda:<rank>), hold XPROC_SHARDS shards of a global
+    4-shard mesh on its card, and run the cross-process
+    sharded_index_build (its files against build-fmin's at PREFIX), the
+    sharded minimizer locate on each mesh of XPROC_MESHES over the batch
+    in WORK/xproc_both.npy (the front-end kernel held bit for bit to its
+    plain version at every launch of the main-path call; answers to
+    WORK for the parent) and the LCS (against the index's). Logs one
+    JSON line: wall per step, collectives, staged bytes, host reads and
+    peak device memory."""
+    import torch
+    import torch.distributed as tdist
+
+    from finito_tpu_torch.index.index import FinimizerIndex
+    from finito_tpu_torch.io.fastx import read_all_records
+    from finito_tpu_torch.ops.minimizer_front import minimizer_windows
+    from finito_tpu_torch.parallel import distributed as dist
+    from finito_tpu_torch.parallel import mesh, shard_build
+
+    pid, nproc, port, backend, prefix, fna, work = argv
+    pid, nproc = int(pid), int(nproc)
+    card = torch.device(DEVICE, pid if backend == "nccl" else 0)
+    torch.cuda.set_device(card)
+    t0 = time.perf_counter()
+    if dist.init_distributed(f"localhost:{port}", nproc, pid, backend=backend,
+                             timeout=XPROC_TIMEOUT) != (pid, nproc):
+        raise AssertionError("the process group has another rank or size")
+    devs = dist.global_devices([card] * XPROC_SHARDS)
+    row = {"xproc_rank": pid, "world": nproc, "backend": backend, "card": str(card),
+           "owners": devs.owners, "setup_s": time.perf_counter() - t0}
+    what = f"xproc {backend} rank{pid}"
+
+    # the build: each rank packs only its shards, every rank gets the index
+    seqs = [bytes(s) for _h, s in read_all_records(fna)]
+    calls, put = [], shard_build._put_shard_blocks
+
+    def counted(devs_, block_fn):
+        return put(devs_, lambda s: (calls.append(s), block_fn(s))[1])
+
+    torch.cuda.reset_peak_memory_stats(card)
+    shard_build._put_shard_blocks = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = shard_build.sharded_index_build(seqs, K, devices=devs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        shard_build._put_shard_blocks = put
+    if not set(calls) <= set(devs.local):
+        raise AssertionError(f"{what} packed shards {sorted(set(calls))}, holds {devs.local}")
+    mprefix = os.path.join(work, f"xproc_{backend}_r{pid}")
+    got.serialize(mprefix)
+    for suffix in INDEX_FILES:
+        with open(mprefix + suffix, "rb") as f, open(prefix + suffix, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{what}: {suffix} is not byte-identical to build-fmin's")
+    log(f"check {what}: sharded_index_build over {len(devs)} shards in {nproc} processes: the "
+        f"{len(INDEX_FILES)} index files byte-identical to build-fmin's; packed shard blocks "
+        f"{sorted(set(calls))} of its shards {devs.local}")
+    row["build"] = {"wall_s": build_s, "collectives": devs.stats["collectives"],
+                    "staged_bytes": devs.stats["staged_bytes"],
+                    "peak_mib": torch.cuda.max_memory_allocated(card) / 2**20,
+                    "nodes": got.sbwt.number_of_subsets()}
+    del got
+    torch.cuda.empty_cache()
+
+    # the locates: the main-path call counted, then timed steps
+    index = FinimizerIndex.load(prefix)
+    concat = np.asarray(index.unitigs.concat, np.uint8)
+    ends = np.asarray(index.unitigs.ends, np.int64)
+    codes = torch.from_numpy(np.load(os.path.join(work, "xproc_both.npy")))
+    B, L = codes.shape
+    row["meshes"] = {}
+    for dp, tp in XPROC_MESHES:
+        torch.cuda.reset_peak_memory_stats(card)
+        grid = mesh.make_mesh(len(devs), tp=tp, devices=devs)
+        t0 = time.perf_counter()
+        sh = mesh.ShardedMinimizerIndex.build(concat, ends, K, tp=tp)
+        tables = mesh.place_minimizer_shards(grid, sh)
+        sh_s = time.perf_counter() - t0
+        fns = {}
+
+        def fn_for(K_slow):
+            if K_slow not in fns:
+                fns[K_slow] = mesh.sharded_minimizer_locate_fn(grid, sh, K_slow, tables=tables)
+            return fns[K_slow]
+
+        seen = []
+
+        def recorded(c, k, m):
+            seen.append((c.clone(), k, m))
+            return minimizer_windows(c, k, m)
+
+        torch.cuda.synchronize()
+        minimizer_windows.launches = 0
+        mesh.minimizer_windows = recorded
+        try:
+            uid, off, n_slow, K_used = mesh_locate_once(fn_for, codes, max(256, B * (L - K + 1) // 32))
+            torch.cuda.synchronize()
+        finally:
+            mesh.minimizer_windows = minimizer_windows
+        launches = minimizer_windows.launches
+        err = check_inputs(f"{what} ({dp},{tp})", seen, launches)
+        np.savez(os.path.join(work, f"xproc_{backend}_{dp}x{tp}_r{pid}.npz"),
+                 uid=uid.cpu().numpy(), off=off.cpu().numpy())
+        fn = fn_for(K_used)
+        c0, b0, r0 = grid.flat.stats["collectives"], grid.flat.stats["staged_bytes"], fn.host_reads
+        walls = []
+        for _ in range(XPROC_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(codes)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        row["meshes"][f"{dp},{tp}"] = {
+            "B": B, "L": L, "shards_here": int((grid.owners == pid).sum()),
+            "sharded_index_s": sh_s, "front_end_launches": launches, "max_abs_err": err,
+            "n_slow": n_slow, "K_slow": K_used, "step_ms": [w * 1e3 for w in walls],
+            "collectives_per_step": (grid.flat.stats["collectives"] - c0) / XPROC_STEPS,
+            "staged_bytes_per_step": (grid.flat.stats["staged_bytes"] - b0) / XPROC_STEPS,
+            "host_reads_per_step": (fn.host_reads - r0) / XPROC_STEPS,
+            "peak_mib": torch.cuda.max_memory_allocated(card) / 2**20}
+        del grid, sh, tables, fns, seen
+        torch.cuda.empty_cache()
+
+    # the LCS
+    c0, b0 = devs.stats["collectives"], devs.stats["staged_bytes"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lcs = mesh.sharded_lcs_fn(devs, index.sbwt)
+    lcs_s = time.perf_counter() - t0
+    if not np.array_equal(lcs, np.asarray(index.LCS)):
+        raise AssertionError(f"{what}: sharded_lcs_fn differs from the index's LCS")
+    log(f"check {what}: sharded_lcs_fn over {len(devs)} shards in {nproc} processes equals the "
+        f"host LCS over {lcs.size} nodes")
+    row["lcs"] = {"s": lcs_s, "collectives": devs.stats["collectives"] - c0,
+                  "staged_bytes": devs.stats["staged_bytes"] - b0}
+    log(json.dumps(row))
+    tdist.destroy_process_group()
+    return 0
+
+
+def xproc_phase(genome_len: int, prefix: str, work: str, index, both: np.ndarray) -> dict:
+    """The mesh across processes: 2 workers (this script with
+    --xproc-worker), XPROC_SHARDS shards each, joined by gloo on cuda:0,
+    and by nccl a card a rank where two cards are visible. Their
+    locates' windows against kmer_location_oracle and the one-process
+    (1, 4) mesh on the same batch. A worker that fails or outlives
+    XPROC_TIMEOUT fails the script. Returns the front-end launches of
+    each worker's main-path locate calls."""
+    import socket
+
+    import torch
+
+    from finito_tpu_torch.parallel import mesh
+    from finito_tpu_torch.utils.synth import kmer_location_oracle
+
+    concat = np.asarray(index.unitigs.concat, np.uint8)
+    ends = np.asarray(index.unitigs.ends, np.int64)
+    want = kmer_location_oracle(concat, ends, both, K)
+    B, L = both.shape
+    one = mesh.make_mesh(4, tp=4, devices=[DEVICE + ":0"] * 4)
+    sh = mesh.ShardedMinimizerIndex.build(concat, ends, K, tp=4)
+    ou, oo, _, _ = mesh_locate_once(lambda K_slow: mesh.sharded_minimizer_locate_fn(one, sh, K_slow),
+                                    both, max(256, B * (L - K + 1) // 32))
+    ou, oo = ou.cpu().numpy(), oo.cpu().numpy()
+    if not (np.array_equal(ou, want[0]) and np.array_equal(oo, want[1])):
+        raise AssertionError("the one-process (1,4) mesh differs from kmer_location_oracle")
+    del one, sh
+    torch.cuda.empty_cache()
+    np.save(os.path.join(work, "xproc_both.npy"), both)
+    launches = {}
+    for backend in ("gloo", "nccl"):
+        if backend == "nccl" and torch.cuda.device_count() < 2:
+            log(f"xproc nccl: not run: {torch.cuda.device_count()} card visible, and nccl needs a "
+                "card a rank (two ranks on one card raise in global_devices)")
+            continue
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--xproc-worker",
+                                   str(pid), "2", str(port), backend, prefix,
+                                   os.path.join(work, "unitigs.fna"), work],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                 for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=XPROC_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"xproc {backend} rank{pid} exit {p.returncode}:\n"
+                                   f"{so.decode()[-2000:]}\n{se.decode()[-3000:]}")
+        ranks = []
+        for so, _ in outs:
+            lines = so.decode().strip().splitlines()
+            for line in lines[:-1]:
+                log(line)
+            ranks.append(json.loads(lines[-1]))
+        for dp, tp in XPROC_MESHES:
+            for pid in range(2):
+                got = np.load(os.path.join(work, f"xproc_{backend}_{dp}x{tp}_r{pid}.npz"))
+                for name, a, o, w in (("uid", got["uid"], ou, want[0]),
+                                      ("off", got["off"], oo, want[1])):
+                    if not (np.array_equal(a, w) and np.array_equal(a, o)):
+                        raise AssertionError(f"xproc {backend} ({dp},{tp}) rank{pid}: {name} "
+                                             "differs from the oracle or the one-process mesh")
+                launches[f"xproc {backend} ({dp},{tp}) rank{pid}"] = \
+                    ranks[pid]["meshes"][f"{dp},{tp}"]["front_end_launches"]
+            log(f"check xproc {backend} ({dp},{tp}) {genome_len} bp: every rank's {B * (L - K + 1)} "
+                "windows equal kmer_location_oracle and the one-process (1,4) mesh")
+        log(json.dumps({"xproc": genome_len, "backend": backend, "processes": 2,
+                        "shards_per_process": XPROC_SHARDS, "wall_s": wall, "ranks": ranks}))
+    return launches
+
+
 def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
     """One index size end to end; returns the front-end kernel launches
     of each of its main-path runs (search-fmin, kmer-mapper query, the
@@ -1904,6 +2156,9 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
             genome_len, prefix, os.path.join(work, "unitigs.fna"), work, index, probe)
         launches[f"unitigs --mesh {PANGENOME[0]} bp"] = mesh_unitig_phase(seed, work)
         dist_phase(genome_len, prefix, qpath, work, index)
+        xproc = xproc_phase(genome_len, prefix, work, index, both)
+        mesh_launches.update(xproc)
+        launches["cross-process mesh locates"] = sum(xproc.values())
     return launches, mesh_launches
 
 
@@ -1916,6 +2171,8 @@ def main() -> int:
                    help="time the kernel across widths, group sizes, R and batch; no ok line")
     p.add_argument("--dist-worker", nargs=6, help=argparse.SUPPRESS,
                    metavar=("PID", "NPROC", "PORT", "PREFIX", "QUERIES", "OUT"))
+    p.add_argument("--xproc-worker", nargs=7, help=argparse.SUPPRESS,
+                   metavar=("PID", "NPROC", "PORT", "BACKEND", "PREFIX", "UNITIGS", "WORK"))
     args = p.parse_args()
 
     t_start = time.perf_counter()
@@ -1929,6 +2186,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA card")
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.xproc_worker:
+        return xproc_worker(args.xproc_worker)
     card = gpu_name_and_power()
     log(f"device: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} visible")

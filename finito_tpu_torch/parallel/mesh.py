@@ -15,14 +15,21 @@ the index that the mesh build (parallel.shard_build) produces.
     ranges, each with its own complete minimizer index.
 
 The JAX package runs each locate as one shard_map program over a mesh
-of devices. Here a Mesh is a (dp, tp) grid of torch devices inside one
-process, the per-shard work is issued shard after shard from Python,
-and the collectives are plain tensor moves: a psum or pmax over tp is a
-sum or max of the shards' tensors moved to the dp row's first device,
-an all_gather a torch.cat, a ppermute a move. A grid may repeat one
-device (JAX's tests use 8 virtual CPU devices the same way); each
-shard's tables are then placed on that device once, not once per dp
-row.
+of devices. Here a Mesh is a (dp, tp) grid of torch devices, each held
+by one process (Mesh.owners), the per-shard work is issued shard after
+shard from Python, and each process runs only the shards its own
+devices hold. In one process the collectives are plain tensor moves: a
+psum or pmax over tp is a sum or max of the shards' tensors moved to the
+dp row's first device, an all_gather a torch.cat, a ppermute a move. A
+grid may repeat one device (JAX's tests use 8 virtual CPU devices the
+same way); each shard's tables are then placed on that device once, not
+once per dp row. A mesh over distributed.global_devices spans processes
+(JAX's global mesh): the psum of a dp row sums the local shards' parts,
+then takes one dist.all_reduce over the row's processes (one process
+group a row, made with the mesh); the rows are all-gathered so that
+every rank gets the whole answer, as JAX's replicated output; the LCS
+label column is all-gathered each round. These go through
+parallel.shard_build's collectives layer.
 """
 
 from __future__ import annotations
@@ -37,6 +44,14 @@ from finito_tpu_torch.ops.bits import popcount32, put_i32, slot32, u32
 from finito_tpu_torch.ops.lcs_device import first_labels, lcs_scatter_indices
 from finito_tpu_torch.ops.minimizer_front import minimizer_windows
 from finito_tpu_torch.ops.streaming import compact_mask
+from finito_tpu_torch.parallel.distributed import Devices
+from finito_tpu_torch.parallel.shard_build import (
+    _all_gather,
+    _all_reduce,
+    _host,
+    _move,
+    flat_devices,
+)
 from finito_tpu_torch.query.minimizer_engine import (
     _match_text_kmer,
     _match_text_kmer_rows,
@@ -49,50 +64,102 @@ from finito_tpu_torch.query.minimizer_engine import (
 class Mesh:
     """A grid of torch devices with named axes: ``devices`` is an object
     array of torch.device, (dp, tp) with axis_names ("dp", "tp"). The
-    grid may repeat a device."""
+    grid may repeat a device. flat: the grid flattened as a
+    distributed.Devices, which names the process holding each entry
+    (owners: the same, as a grid; all this process's by default). Where
+    a dp row spans processes it gets a process group, made here (every
+    rank makes the mesh together)."""
 
-    def __init__(self, devices: np.ndarray, axis_names=("dp", "tp")):
+    def __init__(self, devices: np.ndarray, axis_names=("dp", "tp"), flat: Devices = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.flat = Devices(devices.reshape(-1)) if flat is None else flat
+        self.owners = np.asarray(self.flat.owners).reshape(devices.shape)
+        self.rank = self.flat.rank
+        self.row_groups = [None] * devices.shape[0]
+        if self.flat.spans:
+            import torch.distributed as dist
+
+            for i in range(devices.shape[0]):
+                ranks = sorted(set(self.owners[i].tolist()))
+                if len(ranks) > 1:  # every rank makes every group, in order
+                    group = dist.new_group(ranks)
+                    self.row_groups[i] = group if self.rank in ranks else None
+
+    def local(self, i: int) -> list:
+        """The tp indices of row i that this process holds."""
+        return [j for j in range(self.devices.shape[1]) if self.owners[i, j] == self.rank]
+
+    @property
+    def out_device(self) -> torch.device:
+        """Where a locate's answer lands: this process's first device."""
+        return self.flat[self.flat.local[0]]
 
 
 def make_mesh(n_devices: int, tp: int = 2, devices=None) -> Mesh:
     """A (dp, tp) mesh of n_devices devices: the given ``devices`` (which
-    may repeat one device), else the first n_devices visible CUDA
+    may repeat one device; a distributed.global_devices list makes a
+    mesh that spans processes), else the first n_devices visible CUDA
     devices. tp falls back to 1 when it does not divide n_devices (the
     JAX package's rule)."""
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        pool = [torch.device("cuda", i) for i in range(n)]
+        pool = Devices([torch.device("cuda", i) for i in range(n)])
     else:
-        pool = [torch.device(d) for d in devices]
+        pool = devices if isinstance(devices, Devices) else Devices(devices)
     if len(pool) < n_devices:
         raise RuntimeError(f"needs {n_devices} devices, found {len(pool)}")
     if n_devices % tp != 0:
         tp = 1
+    flat = Devices(pool[:n_devices], pool.owners[:n_devices], pool.rank, pool.backend)
     grid = np.empty(n_devices, dtype=object)
-    grid[:] = pool[:n_devices]
-    return Mesh(grid.reshape(n_devices // tp, tp))
+    grid[:] = list(flat)
+    return Mesh(grid.reshape(n_devices // tp, tp), flat=flat)
 
 
 def _place(mesh: Mesh, shard_tables: list) -> np.ndarray:
     """shard_tables[j]: name -> numpy table of tp shard j. Returns a
-    (dp, tp) object grid of name -> int32 tensor on that shard's device;
-    a shard's tables are moved to each distinct device once."""
+    (dp, tp) object grid of name -> int32 tensor on that shard's device,
+    for the entries this process holds (None for the others); a shard's
+    tables are moved to each distinct local device once (keyed by shard
+    and device: another process's equal device name is another
+    device)."""
     placed, grid = {}, np.empty(mesh.devices.shape, dtype=object)
     for (i, j), dev in np.ndenumerate(mesh.devices):
+        if mesh.owners[i, j] != mesh.rank:
+            continue
         if (j, dev) not in placed:
             placed[(j, dev)] = {name: put_i32(a, dev) for name, a in shard_tables[j].items()}
         grid[i, j] = placed[(j, dev)]
     return grid
 
 
-def _psum(parts, device):
-    """lax.psum of the shards' tensors, on device."""
+def _psum(mesh: Mesh, i: int, parts, device):
+    """lax.psum over tp in dp row i: the local shards' parts summed on
+    device, then summed over the row's processes."""
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
+    if mesh.row_groups[i] is not None:
+        out = _all_reduce(mesh.flat, out, group=mesh.row_groups[i])
     return out
+
+
+def _gather_rows(mesh: Mesh, rows: dict, out_dev) -> torch.Tensor:
+    """The (B, ...) answer from each dp row's (B/dp, ...) part (rows: i
+    -> part, for the rows this process takes part in), whole on every
+    rank: where some row lacks a process, the rows are all-gathered,
+    each from its lowest rank."""
+    dp = mesh.devices.shape[0]
+    everyone = set(mesh.flat.owners)
+    if all(set(mesh.owners[i].tolist()) == everyone for i in range(dp)):
+        return torch.cat([rows[i].to(out_dev) for i in range(dp)])
+    leaders = [int(mesh.owners[i].min()) for i in range(dp)]
+    like = next(iter(rows.values()))
+    got = _all_gather(mesh.flat, [rows[i] if leaders[i] == mesh.rank else None for i in range(dp)],
+                      owners=leaders, like=(tuple(like.shape), like.dtype))
+    return torch.cat([rows[i].to(out_dev) if i in rows else _move(mesh.flat, got[i], out_dev)
+                      for i in range(dp)])
 
 
 def _codes(codes) -> torch.Tensor:
@@ -100,14 +167,21 @@ def _codes(codes) -> torch.Tensor:
 
 
 def _dp_rows(mesh: Mesh, codes: torch.Tensor):
-    """The batch split over dp: (row device, that row's codes on it)."""
+    """The batch split over dp, for the rows with a shard this process
+    holds: (row index, row device: its first local device, that row's
+    codes on it)."""
     dp = mesh.devices.shape[0]
     B = codes.shape[0]
     if B % dp:
         raise ValueError(f"batch {B} not divisible by dp={dp}")
     Bd = B // dp
-    return [(mesh.devices[i, 0], codes[i * Bd : (i + 1) * Bd].to(mesh.devices[i, 0]))
-            for i in range(dp)]
+    out = []
+    for i in range(dp):
+        mine = mesh.local(i)
+        if mine:
+            rd = mesh.devices[i, mine[0]]
+            out.append((i, rd, codes[i * Bd : (i + 1) * Bd].to(rd)))
+    return out
 
 
 @dataclass
@@ -239,10 +313,12 @@ def _local_rank(words, blocks, c, local_i):
 
 def sharded_locate_fn(mesh: Mesh, sh: ShardedIndex):
     """The SBWT locate over (dp, tp): returns call((B, L) codes) ->
-    ((B, W) uid, (B, W) off) int32 on the first mesh device. Every rank
-    of the k extension steps is a psum over tp of clamped shard-local
-    ranks, and the (uid, off) gather a psum of the owner shard's row
-    (the others contribute 0; a found-but-dummy rank sums to -1)."""
+    ((B, W) uid, (B, W) off) int32 on mesh.out_device (the first mesh
+    device in one process; on every rank, whole, across processes).
+    Every rank of the k extension steps is a psum over tp of clamped
+    shard-local ranks, and the (uid, off) gather a psum of the owner
+    shard's row (the others contribute 0; a found-but-dummy rank sums to
+    -1)."""
     k, n_nodes, nps = sh.k, sh.n_nodes, sh.nodes_per_shard
     dp, tp = mesh.devices.shape
     if tp != sh.words.shape[0]:
@@ -250,13 +326,15 @@ def sharded_locate_fn(mesh: Mesh, sh: ShardedIndex):
     tables = _place(mesh, [{"words": sh.words[j], "blocks": sh.blocks[j], "loc": sh.loc_table[j]}
                            for j in range(tp)])
     starts = [int(s) for s in sh.node_start]
-    C = {dev: put_i32(sh.C, dev) for dev in mesh.devices[:, 0]}
+    C = {}
 
     def locate_row(i, rd, codes):
-        row = [(mesh.devices[i, j], tables[i, j], starts[j]) for j in range(tp)]
+        row = [(mesh.devices[i, j], tables[i, j], starts[j]) for j in mesh.local(i)]
+        if rd not in C:
+            C[rd] = put_i32(sh.C, rd)
 
         def rank_g(c, pos):
-            return _psum([_local_rank(t["words"], t["blocks"], c.to(dev),
+            return _psum(mesh, i, [_local_rank(t["words"], t["blocks"], c.to(dev),
                                       (pos.to(dev) - start).clamp(0, nps))
                           for dev, t, start in row], rd)
 
@@ -287,15 +365,14 @@ def sharded_locate_fn(mesh: Mesh, sh: ShardedIndex):
             rows = t["loc"][local_idx.clamp(0, nps - 1).to(torch.int64)]
             uid_parts.append(torch.where(in_shard, rows[..., 0], 0))
             off_parts.append(torch.where(in_shard, rows[..., 1], 0))
-        uid, off = _psum(uid_parts, rd), _psum(off_parts, rd)
+        uid, off = _psum(mesh, i, uid_parts, rd), _psum(mesh, i, off_parts, rd)
         found = found & (uid >= 0)
         return torch.where(found, uid, -1), torch.where(found, off, -1)
 
     def call(codes):
-        outs = [locate_row(i, rd, c) for i, (rd, c) in enumerate(_dp_rows(mesh, _codes(codes)))]
-        out_dev = mesh.devices[0, 0]
-        return (torch.cat([u.to(out_dev) for u, _ in outs]),
-                torch.cat([o.to(out_dev) for _, o in outs]))
+        outs = {i: locate_row(i, rd, c) for i, rd, c in _dp_rows(mesh, _codes(codes))}
+        return (_gather_rows(mesh, {i: u for i, (u, _) in outs.items()}, mesh.out_device),
+                _gather_rows(mesh, {i: o for i, (_, o) in outs.items()}, mesh.out_device))
 
     return call
 
@@ -449,10 +526,12 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
                                 tables=None):
     """The minimizer locate over (dp, tp): batch sharded over dp, the
     unitig text over tp. Returns call((B, L) codes) -> ((B, W) uid,
-    (B, W) off, () n_slow), int32 on the first mesh device; the results
-    are valid only when n_slow <= K_slow (n_slow is the largest shard's
-    slow-window count). tables: place_minimizer_shards(mesh, sh), to
-    share one placement between capacities.
+    (B, W) off, () n_slow), int32 on mesh.out_device (whole on every
+    rank when the mesh spans processes; the codes are then the same on
+    every rank); the results are valid only when n_slow <= K_slow
+    (n_slow is the largest shard's slow-window count, over every
+    process). tables: place_minimizer_shards(mesh, sh), to share one
+    placement between capacities.
 
     Every shard runs the single-device v1 locate (narrow-descriptor
     branch) on its dp slice against its own tables: the front end
@@ -461,8 +540,9 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
     the compacted slow path, a Python loop bounded by one host read of
     the shard's largest slot length (call.host_reads counts them). The
     shards' front ends and fast paths are all issued before the first
-    read. A present k-mer verifies in exactly one shard's text, so one
-    psum of owner contributions combines the answers. Any k <= 255."""
+    read. A process runs only the shards it holds. A present k-mer
+    verifies in exactly one shard's text, so one psum of owner
+    contributions combines the answers. Any k <= 255."""
     k, m, hbits = sh.k, sh.m, sh.h
     masks = _word_masks(k)
     dp, tp = mesh.devices.shape
@@ -537,7 +617,7 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
         rows = _dp_rows(mesh, _codes(codes))
         with record_function("mesh_shards"):
             states = {(i, j): shard_fast(tables[i, j], c.to(mesh.devices[i, j]))
-                      for i, (_, c) in enumerate(rows) for j in range(tp)}
+                      for i, _, c in rows for j in mesh.local(i)}
             trips = {}
             for key, st in states.items():  # the host reads: one per shard
                 trips[key] = int(st["trips"])
@@ -547,40 +627,47 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
         with record_function("mesh_combine"):
             # owner-shard psum combine (not-found shards contribute 0);
             # local unitig ids globalize with the shard's uid base
-            out_dev = mesh.devices[0, 0]
-            uid_rows, off_rows = [], []
-            for i, (rd, _) in enumerate(rows):
-                uid = _psum([torch.where(results[i, j][0] >= 0,
-                                         results[i, j][0] + (uid_base[j] + 1), 0)
-                             for j in range(tp)], rd) - 1
-                off = _psum([torch.where(results[i, j][1] >= 0, results[i, j][1] + 1, 0)
-                             for j in range(tp)], rd) - 1
-                uid_rows.append(uid.to(out_dev))
-                off_rows.append(off.to(out_dev))
+            out_dev = mesh.out_device
+            uid_rows, off_rows = {}, {}
+            for i, rd, _ in rows:
+                uid_rows[i] = _psum(mesh, i, [torch.where(results[i, j][0] >= 0,
+                                                          results[i, j][0] + (uid_base[j] + 1), 0)
+                                              for j in mesh.local(i)], rd) - 1
+                off_rows[i] = _psum(mesh, i, [torch.where(results[i, j][1] >= 0,
+                                                          results[i, j][1] + 1, 0)
+                                              for j in mesh.local(i)], rd) - 1
             # the largest shard's slow count anywhere on the mesh
             n_slow = torch.stack([st["n_slow"].to(out_dev) for st in states.values()]).max()
-            return torch.cat(uid_rows), torch.cat(off_rows), n_slow
+            if mesh.flat.spans:
+                n_slow = _all_reduce(mesh.flat, n_slow, "max")
+            return (_gather_rows(mesh, uid_rows, out_dev), _gather_rows(mesh, off_rows, out_dev),
+                    n_slow)
 
     call.host_reads = 0
     return call
 
 
-def sharded_lcs_fn(mesh: Mesh, sbwt) -> np.ndarray:
+def sharded_lcs_fn(mesh, sbwt) -> np.ndarray:
     """The LCS array computed with the node axis sharded over every mesh
-    device: the k label-propagation rounds of ops.lcs_device, each round
-    per shard a first-difference mark that needs one halo element (the
-    previous shard's last label, a ppermute), then the de-Bruijn
-    propagation as an all_gather of the label column and a shard-local
-    scatter of the edges whose destination falls in the shard (edge
-    lists bucketed by destination shard host-side, padded to one width;
-    the padding lands in a sink slot). Returns host int64, equal to
+    device (mesh: a Mesh, or the flat device list of
+    parallel.shard_build.flat_devices): the k label-propagation rounds
+    of ops.lcs_device, each round per shard a first-difference mark that
+    needs one halo element (the previous shard's last label, a
+    ppermute), then the de-Bruijn propagation as an all_gather of the
+    label column and a shard-local scatter of the edges whose
+    destination falls in the shard (edge lists bucketed by destination
+    shard host-side, padded to one width; the padding lands in a sink
+    slot). A process runs the shards it holds; across processes the
+    round's one collective is the column's all_gather, and the halo is
+    read from it. Returns host int64 on every rank, equal to
     sbwt.lcs_array."""
     k = sbwt.get_k()
     n = sbwt.number_of_subsets()
     src, dst = lcs_scatter_indices(sbwt)
 
-    devs = list(mesh.devices.reshape(-1))
+    devs = flat_devices(mesh)
     S = len(devs)
+    loc = devs.local
     per = -(-n // S)
     npad = S * per
 
@@ -600,28 +687,32 @@ def sharded_lcs_fn(mesh: Mesh, sbwt) -> np.ndarray:
         pos += c
 
     cur0 = first_labels(sbwt, npad)
-    cur = [torch.from_numpy(cur0[s * per : (s + 1) * per]).to(dev) for s, dev in enumerate(devs)]
-    src_t = [torch.from_numpy(src_sh[s]).to(dev).to(torch.int64) for s, dev in enumerate(devs)]
-    dst_t = [torch.from_numpy(dstl_sh[s]).to(dev).to(torch.int64) for s, dev in enumerate(devs)]
-    lcs = [torch.full((per,), k, dtype=torch.int32, device=dev) for dev in devs]
-    first = {dev: torch.ones(1, dtype=torch.bool, device=dev) for dev in devs}
+    cur, src_t, dst_t, lcs = [None] * S, {}, {}, [None] * S
+    for s in loc:
+        dev = devs[s]
+        cur[s] = torch.from_numpy(cur0[s * per : (s + 1) * per]).to(dev)
+        src_t[s] = torch.from_numpy(src_sh[s]).to(dev).to(torch.int64)
+        dst_t[s] = torch.from_numpy(dstl_sh[s]).to(dev).to(torch.int64)
+        lcs[s] = torch.full((per,), k, dtype=torch.int32, device=dev)
+    first = {devs[s]: torch.ones(1, dtype=torch.bool, device=devs[s]) for s in loc}
     for r in range(k):
-        for s, dev in enumerate(devs):
+        full = _all_gather(devs, cur)  # the label column, every shard's
+        col = {}  # on each local device once
+        for s in loc:
+            dev = devs[s]
+            if dev not in col:
+                col[dev] = torch.cat([_move(devs, c, dev) for c in full])
             if s == 0:  # its first node is always a global first-difference
                 diff = torch.cat([first[dev], cur[0][1:] != cur[0][:-1]])
             else:
                 # halo: the previous shard's last label
-                left = torch.cat([cur[s - 1][-1:].to(dev), cur[s][:-1]])
+                left = torch.cat([_move(devs, full[s - 1][-1:], dev), cur[s][:-1]])
                 diff = cur[s] != left
             lcs[s] = torch.where((lcs[s] == k) & diff, r, lcs[s])
-        full = {}  # all_gather of the label column, once per device
-        for dev in devs:
-            if dev not in full:
-                full[dev] = torch.cat([c.to(dev) for c in cur])
-        nxt = []
-        for s, dev in enumerate(devs):
-            buf = torch.zeros(per + 1, dtype=torch.int32, device=dev)
-            buf.scatter_(0, dst_t[s], full[dev][src_t[s]])
-            nxt.append(buf[:per])
+        nxt = [None] * S
+        for s in loc:
+            buf = torch.zeros(per + 1, dtype=torch.int32, device=devs[s])
+            buf.scatter_(0, dst_t[s], col[devs[s]][src_t[s]])
+            nxt[s] = buf[:per]
         cur = nxt
-    return np.concatenate([x.cpu().numpy() for x in lcs])[:n].astype(np.int64)
+    return np.concatenate(_host(devs, lcs))[:n].astype(np.int64)

@@ -27,26 +27,46 @@ set sharded over S devices by a distributed sample sort:
     minimum with one halo from the right, and resolves the cross-unitig
     overwrite rule at the owning node shard by one multiword sort.
 
-The JAX package runs each phase as one shard_map program. Here the mesh
-is a flat list of torch devices in one process (parallel.mesh's model;
-a device may repeat), and each phase splits at its collectives into
-per-shard stages issued shard after shard:
+The JAX package runs each phase as one shard_map program. Here the
+shards' devices are a flat distributed.Devices list (parallel.mesh's
+model; a device may repeat), and each phase splits at its collectives
+into per-shard stages issued shard after shard. A process holds and
+computes only its own shards (Devices.local): per-shard lists have an
+entry for every shard, None where another process holds it. The
+collectives layer below is the one place where a collective crosses
+processes; in one process (no group, or every shard held here) it calls
+no torch.distributed function and is a tensor move:
   lax.all_to_all(x, tiled=True)  -> _all_to_all, an exact block
       transpose: shard j receives cat_i(send_i[j*M:(j+1)*M]), in source
       order; applied twice it is the identity, so it also carries the
-      answers back;
-  lax.ppermute halos             -> a slice of the neighbour's tensor,
-      moved; the end shards take JAX's fill values;
-  lax.all_gather                 -> host counts the caller already read.
+      answers back. Across processes: the local blocks first, then one
+      dist.all_to_all_single of the per-destination-process blocks,
+      reassembled in source-shard order;
+  lax.ppermute halos             -> _all_gather of each shard's edge
+      rows (a few rows a shard), the neighbour's picked; the end shards
+      take JAX's fill values;
+  lax.psum / pmax of counts      -> one host read of the local shards
+      (_total), then one dist.all_reduce (_sum_all, _max_all,
+      _shard_ints), so that every rank takes the same retry and
+      capacity decision;
+  process_allgather (_host)      -> _host: every shard's part on every
+      rank, for the final assembly of the bit rows, node keys, fmin and
+      offsets.
+The JAX package's _put_shard_blocks packs only the shards this process
+holds, and so does this one's; _per_device is its replicated _put. The
+input sequences are the same on every rank; what is split is what lives
+on the devices. Under gloo a CUDA tensor is staged through the host for
+a collective, explicitly, and Devices.stats counts the collectives and
+the staged bytes; under nccl it moves card to card.
 
 All exchanges use fixed-capacity blocks: exact where a prior pass
 counted them, else slack with an overflow retry (each try reads the
 summed overflow count once, and doubles the capacity on overflow), so
-exactness is never traded away. The JAX package's multi-process
-branches (_host, _put) have no counterpart: this runs in one process.
+exactness is never traded away.
 
 Output equals build_plain_matrix_sbwt and FinimizerIndexBuilder bit for
-bit (tests/test_torch_shard_build.py).
+bit, in one process (tests/test_torch_shard_build.py) and across
+processes (tests/test_torch_xproc.py).
 """
 
 from __future__ import annotations
@@ -58,49 +78,249 @@ import torch
 
 from finito_tpu_torch.ops import keys as kj
 from finito_tpu_torch.ops.bits import U32
+from finito_tpu_torch.parallel.distributed import Devices
 from finito_tpu_torch.sbwt import keys as kw
 from finito_tpu_torch.sbwt.sbwt import PlainMatrixSBWT
 
 
-def flat_devices(mesh=None, n_devices: Optional[int] = None, devices=None) -> List[torch.device]:
-    """The shards' devices, one a shard, in order (JAX's _flat_mesh):
-    `devices` as given (a device may repeat: ["cpu"] * 8 runs 8 shards
-    on the CPU); else a parallel.mesh.Mesh's grid, flattened; else the
-    first `mesh` (an int) or n_devices visible CUDA cards, all of them
-    by default, and fewer where fewer are visible (the output does not
-    depend on the shard count). Without a card this raises: the build
-    never falls back to the CPU unless asked."""
+def flat_devices(mesh=None, n_devices: Optional[int] = None, devices=None) -> Devices:
+    """The shards' devices, one a shard, in order, with the process that
+    holds each (JAX's _flat_mesh): `devices` as given (a device may
+    repeat: ["cpu"] * 8 runs 8 shards on the CPU; a
+    distributed.global_devices list spans processes); else a
+    parallel.mesh.Mesh's grid, flattened; else the first `mesh` (an int)
+    or n_devices visible CUDA cards, all of them by default, and fewer
+    where fewer are visible (the output does not depend on the shard
+    count). Without a card this raises: the build never falls back to
+    the CPU unless asked."""
     from finito_tpu_torch.parallel.mesh import Mesh
 
+    for given in (devices, mesh):
+        if isinstance(given, Devices):
+            return given
     if devices is not None:
-        return [torch.device(d) for d in devices]
+        return Devices(devices)
     if isinstance(mesh, Mesh):
-        return [torch.device(d) for d in mesh.devices.reshape(-1)]
+        return mesh.flat
     if mesh is not None and not isinstance(mesh, int):
-        return [torch.device(d) for d in mesh]
+        return Devices(mesh)
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n_cards == 0:
         raise RuntimeError("the mesh build runs on CUDA devices and none is visible "
                            "(devices=['cpu'] * N runs N shards on the CPU)")
     n = mesh if isinstance(mesh, int) else (n_devices or n_cards)
-    return [torch.device("cuda", i) for i in range(min(n, n_cards))]
+    return Devices([torch.device("cuda", i) for i in range(min(n, n_cards))])
+
+
+# ---- the collectives layer: the one place a collective crosses processes
+
+
+def _spans(devs) -> bool:
+    return isinstance(devs, Devices) and devs.spans
+
+
+def _local(devs) -> List[int]:
+    """The shards this process holds (all of a plain device list)."""
+    return devs.local if isinstance(devs, Devices) else list(range(len(devs)))
+
+
+def _by_rank(owners) -> List[List[int]]:
+    """The items each rank holds (owners[s]: item s's rank), rank order."""
+    import torch.distributed as dist
+
+    return [[s for s, o in enumerate(owners) if o == r] for r in range(dist.get_world_size())]
+
+
+def _move(devs: Devices, t: torch.Tensor, dev) -> torch.Tensor:
+    """t on dev, for a collective; under gloo a move between a card and
+    the host is staging, and its bytes are counted."""
+    dev = torch.device(dev)
+    if devs.backend == "gloo" and (t.device.type == "cuda") != (dev.type == "cuda"):
+        devs.stats["staged_bytes"] += t.numel() * t.element_size()
+    return t.to(dev)
+
+
+def _all_reduce(devs: Devices, t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """dist.all_reduce (op "sum" or "max") of t over group (the world by
+    default), through the stage; returns a new tensor on t's device."""
+    import torch.distributed as dist
+
+    x = _move(devs, t, devs.stage).clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX, group=group)
+    devs.stats["collectives"] += 1
+    return _move(devs, x, t.device)
+
+
+def _sum_all(devs, n: int) -> int:
+    """A host count summed over the processes (n itself in one)."""
+    if not _spans(devs):
+        return n
+    return int(_all_reduce(devs, torch.tensor([n], dtype=torch.int64))[0])
+
+
+def _max_all(devs, n: int) -> int:
+    """A host count's maximum over the processes (n itself in one)."""
+    if not _spans(devs):
+        return n
+    return int(_all_reduce(devs, torch.tensor([n], dtype=torch.int64), "max")[0])
 
 
 def _total(parts) -> int:
-    """Sum of per-shard scalar tensors: one host read."""
-    dev = parts[0].device
-    return int(sum(p.to(dev) for p in parts))
+    """Sum of the local shards' scalar tensors (None: another process's
+    shard): one host read. _sum_all makes it the mesh's."""
+    mine = [p for p in parts if p is not None]
+    dev = mine[0].device
+    return int(sum(p.to(dev) for p in mine))
+
+
+def _shard_ints(devs, parts) -> np.ndarray:
+    """Every shard's scalar tensor as one host int64 array: one host
+    read of the local shards, then (across processes) one all_reduce in
+    which each shard's holder alone contributes."""
+    loc = _local(devs)
+    vals = np.zeros(len(devs), np.int64)
+    vals[loc] = torch.stack([parts[s].to(devs[loc[0]]) for s in loc]).cpu().numpy()
+    if _spans(devs):
+        vals = _all_reduce(devs, torch.from_numpy(vals)).numpy()
+    return vals
+
+
+def _all_gather(devs, parts, owners=None, like=None) -> list:
+    """lax.all_gather of equal-shaped items: parts[s] is item s where
+    this process holds it (owners[s], default devs.owners), else None;
+    like = (shape, dtype) for a process that holds none. Returns every
+    item, on the stage (in one process: parts as given)."""
+    if not _spans(devs):
+        return list(parts)
+    import torch.distributed as dist
+
+    owners = devs.owners if owners is None else owners
+    by_rank = _by_rank(owners)
+    mine = by_rank[devs.rank]
+    shape, dtype = (tuple(parts[mine[0]].shape), parts[mine[0]].dtype) if mine else like
+    n_max = max(len(b) for b in by_rank)
+    stacked = torch.zeros((n_max, *shape), dtype=dtype, device=devs.stage)
+    for i, s in enumerate(mine):
+        stacked[i] = _move(devs, parts[s], devs.stage)
+    outs = [torch.empty_like(stacked) for _ in by_rank]
+    dist.all_gather(outs, stacked)
+    devs.stats["collectives"] += 1
+    got = [None] * len(owners)
+    for r, items in enumerate(by_rank):
+        for i, s in enumerate(items):
+            got[s] = outs[r][i]
+    return got
+
+
+def _host(devs, parts) -> List[np.ndarray]:
+    """JAX's _host (a tiled process_allgather): every shard's tensor as
+    a host array on every rank; parts[s] is None where another process
+    holds shard s. Shapes may differ between shards."""
+    loc = _local(devs)
+    if not _spans(devs):
+        return [parts[s].cpu().numpy() for s in loc]
+    import torch.distributed as dist
+
+    S = len(devs)
+    ref = parts[loc[0]]
+    shapes = torch.zeros((S, ref.dim()), dtype=torch.int64)
+    for s in loc:
+        shapes[s] = torch.tensor(parts[s].shape)
+    shapes = _all_reduce(devs, shapes)
+    sizes = shapes.prod(dim=1).tolist()
+    by_rank = _by_rank(devs.owners)
+    n_max = max(sum(sizes[s] for s in b) for b in by_rank)
+    flat = torch.zeros(n_max, dtype=ref.dtype, device=devs.stage)
+    pos = 0
+    for s in loc:
+        flat[pos : pos + sizes[s]] = _move(devs, parts[s].reshape(-1), devs.stage)
+        pos += sizes[s]
+    outs = [torch.empty_like(flat) for _ in by_rank]
+    dist.all_gather(outs, flat)
+    devs.stats["collectives"] += 1
+    got = [None] * S
+    for r, items in enumerate(by_rank):
+        pos = 0
+        for s in items:
+            got[s] = outs[r][pos : pos + sizes[s]].reshape(shapes[s].tolist()).cpu().numpy()
+            pos += sizes[s]
+    return got
+
+
+def _all_to_all(sends: Sequence[Optional[torch.Tensor]], devs) -> List[Optional[torch.Tensor]]:
+    """lax.all_to_all(x, "D", 0, 0, tiled=True) over the flat mesh:
+    sends[i] is shard i's (S*M, ...) block stack (None where another
+    process holds shard i); shard j receives cat_i(sends[i][j*M:(j+1)*M])
+    on devs[j]. Across processes: the blocks for each destination
+    process first, one dist.all_to_all_single, then each local shard's
+    blocks in source-shard order."""
+    S = len(devs)
+    loc = _local(devs)
+    M = sends[loc[0]].shape[0] // S
+    if not _spans(devs):
+        return [torch.cat([sends[i][j * M : (j + 1) * M].to(devs[j]) for i in range(S)])
+                for j in range(S)]
+    import torch.distributed as dist
+
+    by_rank = _by_rank(devs.owners)
+    blocks, in_splits = [], []
+    for dests in by_rank:
+        blocks += [sends[i][j * M : (j + 1) * M] for i in loc for j in dests]
+        in_splits.append(len(loc) * len(dests) * M)
+    x = torch.cat([_move(devs, b, devs.stage) for b in blocks])
+    out_splits = [len(srcs) * len(loc) * M for srcs in by_rank]
+    y = x.new_empty((sum(out_splits), *x.shape[1:]))
+    dist.all_to_all_single(y, x, out_splits, in_splits)
+    devs.stats["collectives"] += 1
+    got, pos = {}, 0
+    for srcs in by_rank:  # from each process: its shards' blocks to each local shard
+        for i in srcs:
+            for j in loc:
+                got[i, j] = y[pos : pos + M]
+                pos += M
+    return [_move(devs, torch.cat([got[i, j] for i in range(S)]), devs[j]) if j in loc else None
+            for j in range(S)]
+
+
+def _each(devs, fn) -> list:
+    """[fn(s) for each shard s this process holds], None for the others."""
+    out = [None] * len(devs)
+    for s in _local(devs):
+        out[s] = fn(s)
+    return out
 
 
 def _per_device(devs, a: np.ndarray) -> dict:
-    """A host table on each distinct device, int64 (uint32 planes
-    widened by ops.keys.to_device)."""
+    """A host table (the same on every rank) on each distinct device of
+    this process's shards, int64 (uint32 planes widened by
+    ops.keys.to_device): JAX's replicated _put."""
     out = {}
-    for d in devs:
+    for s in _local(devs):
+        d = devs[s]
         if d not in out:
             out[d] = (kj.to_device(a, d) if a.dtype == np.uint32
                       else torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(d))
     return out
+
+
+def _put_shard_blocks(devs, block_fn) -> List[Optional[torch.Tensor]]:
+    """One tensor a shard this process holds (None for the others):
+    block_fn(s) -> host block, called only for the local shards, moved
+    to devs[s] and freed, so the host working set peaks at one shard's
+    block. uint32 blocks (key planes) are widened to the int64
+    convention on the device."""
+    parts = [None] * len(devs)
+    for s in _local(devs):
+        b = block_fn(s)
+        if b.dtype == np.uint32:
+            parts[s] = kj.to_device(b, devs[s])
+        else:
+            parts[s] = torch.from_numpy(b).to(devs[s])
+        del b
+    return parts
+
+
+# ---- the build
 
 
 def _resent(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -114,16 +334,6 @@ def _scatter_rows(fill: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor, n:
     every dropped row goes."""
     fill[slot] = rows
     return fill[:n]
-
-
-def _all_to_all(sends: Sequence[torch.Tensor], devs) -> List[torch.Tensor]:
-    """lax.all_to_all(x, "D", 0, 0, tiled=True) over the flat mesh:
-    sends[i] is shard i's (S*M, ...) block stack; shard j receives
-    cat_i(sends[i][j*M:(j+1)*M]) on devs[j]."""
-    S = len(sends)
-    M = sends[0].shape[0] // S
-    return [torch.cat([sends[i][j * M : (j + 1) * M].to(devs[j]) for i in range(S)])
-            for j in range(S)]
 
 
 def _exchange_send(keys, splitters, S: int, M: int, payloads=()):
@@ -150,33 +360,30 @@ def _exchange_send(keys, splitters, S: int, M: int, payloads=()):
 
 
 def _exchange(keys_l, spl, S: int, M: int, devs, payloads_l=None):
-    """The sample-sort exchange on every shard: keys_l[s] is shard s's
-    (n_s, P) rows, spl a device -> splitters map, payloads_l[s] shard
-    s's aligned payloads. Returns (recv (S*M, P) per shard, received
-    payloads per shard, overflow count per shard, context per shard)."""
-    sends, pays, ovf, ctx = [], [], [], []
-    for s in range(S):
-        send, spay, o, c = _exchange_send(keys_l[s], spl[devs[s]], S, M,
-                                          payloads_l[s] if payloads_l else ())
-        sends.append(send)
-        pays.append(spay)
-        ovf.append(o)
-        ctx.append(c)
+    """The sample-sort exchange on every local shard: keys_l[s] is shard
+    s's (n_s, P) rows, spl a device -> splitters map, payloads_l[s]
+    shard s's aligned payloads (None entries: other processes' shards).
+    Returns (recv (S*M, P) per shard, received payloads per shard,
+    overflow count per shard, context per shard)."""
+    sends, pays, ovf, ctx = [None] * S, [None] * S, [None] * S, [None] * S
+    for s in _local(devs):
+        sends[s], pays[s], ovf[s], ctx[s] = _exchange_send(
+            keys_l[s], spl[devs[s]], S, M, payloads_l[s] if payloads_l else ())
     recv = _all_to_all(sends, devs)
-    rpay = [_all_to_all([pays[s][i] for s in range(S)], devs) for i in range(len(pays[0]))]
+    n_pay = len(payloads_l[_local(devs)[0]]) if payloads_l else 0
+    rpay = [_all_to_all([None if p is None else p[i] for p in pays], devs) for i in range(n_pay)]
     return recv, [[r[s] for r in rpay] for s in range(S)], ovf, ctx
 
 
 def _answers_back(ans_l, ctx_l, n_l, S: int, M: int, devs) -> List[torch.Tensor]:
     """The inverse all_to_all of per-slot answers -> per-row answers of
-    each shard (-1 where the row was not sent)."""
+    each local shard (-1 where the row was not sent)."""
     back = _all_to_all(ans_l, devs)
-    out = []
-    for s in range(S):
+    out = [None] * S
+    for s in _local(devs):
         order, slot, ok = ctx_l[s]
         got = torch.where(ok, back[s][slot.clamp(max=S * M - 1)], -1)
-        out.append(torch.full((n_l[s],), -1, dtype=got.dtype, device=devs[s])
-                   .scatter_(0, order, got))
+        out[s] = torch.full((n_l[s],), -1, dtype=got.dtype, device=devs[s]).scatter_(0, order, got)
     return out
 
 
@@ -216,25 +423,12 @@ def _route_by_owner(own_l, payloads_l, S: int, M: int, devs):
     """Route payload rows to the shard named by own_l[s] (S = dropped),
     one padded all_to_all a payload. Returns (received payloads per
     shard, each (S*M,); overflow count per shard)."""
-    sends, ovf = zip(*(_route_send(own_l[s], payloads_l[s], S, M) for s in range(S)))
-    recv = [_all_to_all([sends[s][i] for s in range(S)], devs) for i in range(len(sends[0]))]
-    return [[r[s] for r in recv] for s in range(S)], list(ovf)
-
-
-def _put_shard_blocks(devs, block_fn) -> List[torch.Tensor]:
-    """One tensor a shard: block_fn(s) -> host block, moved to devs[s]
-    and freed, so the host working set peaks at one shard's block.
-    uint32 blocks (key planes) are widened to the int64 convention on
-    the device."""
-    parts = []
-    for s, d in enumerate(devs):
-        b = block_fn(s)
-        if b.dtype == np.uint32:
-            parts.append(kj.to_device(b, d))
-        else:
-            parts.append(torch.from_numpy(b).to(d))
-        del b
-    return parts
+    sends, ovf = [None] * S, [None] * S
+    for s in _local(devs):
+        sends[s], ovf[s] = _route_send(own_l[s], payloads_l[s], S, M)
+    n_pay = len(payloads_l[_local(devs)[0]])
+    recv = [_all_to_all([None if x is None else x[i] for x in sends], devs) for i in range(n_pay)]
+    return [[r[s] for r in recv] for s in range(S)], ovf
 
 
 def _host_splitters(samples: List[np.ndarray], S: int, Pp: int) -> np.ndarray:
@@ -253,7 +447,8 @@ def _pack_shards(segs: Sequence[np.ndarray], k: int, devs, key_fn):
     by key_fn(seg) -> key words, and a strided splitter sample (the key
     sets are never concatenated on the host). Shards are packed one at a
     time and moved to their devices (_put_shard_blocks). Returns (keys0
-    per shard (N0, P) int64, sample)."""
+    per shard (N0, P) int64, None where another process holds the shard;
+    the sample, the same on every rank)."""
     S = len(devs)
     Pp = kj.n_planes(k)
     wins = np.array([c.size - k + 1 for c in segs], np.int64)
@@ -296,25 +491,28 @@ def _pack_shards(segs: Sequence[np.ndarray], k: int, devs, key_fn):
 def _distinct(keys0, spl, devs):
     """Phases A and B of both mesh builds: local sort with exact bucket
     counts, the window exchange and dedup. Returns (distinct keys per
-    shard, (R1, P) sentinel-padded, their counts on the host, R1)."""
+    shard, (R1, P) sentinel-padded, their counts on the host (every
+    shard's), R1)."""
     S = len(devs)
-    skeys, counts = [], []
-    for s in range(S):
+    skeys, counts = [None] * S, []
+    for s in _local(devs):
         ks = keys0[s]
         sk = ks[kj.argsort_rows(ks)]
         b = kj.bucket_of(sk, spl[devs[s]])
         counts.append(torch.zeros(S, dtype=torch.int64, device=devs[s])
                       .index_add_(0, b, (~kj.is_sentinel(sk)).to(torch.int64)).max())
-        skeys.append(sk)
-    M1 = max(1, int(torch.stack([c.to(devs[0]) for c in counts]).max()))  # exact
+        skeys[s] = sk
+    # exact
+    M1 = max(1, _max_all(devs, int(torch.stack([c.to(counts[0].device) for c in counts]).max())))
     R1 = S * M1
     recv, _, ovf, _ = _exchange(skeys, spl, S, M1, devs)
     del skeys
-    if _total(ovf) != 0:
+    if _sum_all(devs, _total(ovf)) != 0:
         raise AssertionError("sample sort: the exact window capacity overflowed")
-    out, m = zip(*(_sort_dedup_compact(r, R1) for r in recv))
-    m_host = torch.stack([x.to(devs[0]) for x in m]).cpu().numpy().astype(np.int64)
-    return list(out), m_host, R1
+    out, m = [None] * S, [None] * S
+    for s in _local(devs):
+        out[s], m[s] = _sort_dedup_compact(recv[s], R1)
+    return out, _shard_ints(devs, m), R1
 
 
 def sharded_sbwt_build(
@@ -336,6 +534,7 @@ def sharded_sbwt_build(
         raise ValueError("k must be >= 2")
     devs = flat_devices(mesh, n_devices, devices)
     S = len(devs)
+    loc = _local(devs)
     Pp = kj.n_planes(k)
 
     # ---- host prep: encode, split contiguously by window count, pack
@@ -361,28 +560,29 @@ def sharded_sbwt_build(
 
     # ---- phase C: sources ((k-1)-prefix not among (k-1)-suffixes)
     M2 = max(1, int(np.ceil(slack * R1 / S)))
-    sents = [kj.is_sentinel(km) for km in kmers]
-    sufs = [_resent(kj.shift_right3_rows(km), se) for km, se in zip(kmers, sents)]
-    pres = [_resent(kj.mask_low_rows(km, k - 1), se) for km, se in zip(kmers, sents)]
+    sents = _each(devs, lambda s: kj.is_sentinel(kmers[s]))
+    sufs = _each(devs, lambda s: _resent(kj.shift_right3_rows(kmers[s]), sents[s]))
+    pres = _each(devs, lambda s: _resent(kj.mask_low_rows(kmers[s], k - 1), sents[s]))
     while True:
         recvR, _, ovf1, _ = _exchange(sufs, spl2, S, M2, devs)
         recvQ, _, ovf2, ctxQ = _exchange(pres, spl2, S, M2, devs)
-        ans = [kj.match_rows(recvQ[s], recvR[s],
-                             torch.where(kj.is_sentinel(recvR[s]), -1, 1))
-               for s in range(S)]
-        got = _answers_back(ans, ctxQ, [km.shape[0] for km in kmers], S, M2, devs)
-        is_source = [~se & (g < 0) for se, g in zip(sents, got)]
-        if _total(ovf1 + ovf2) == 0:
+        ans = _each(devs, lambda s: kj.match_rows(
+            recvQ[s], recvR[s], torch.where(kj.is_sentinel(recvR[s]), -1, 1)))
+        got = _answers_back(ans, ctxQ, [None if km is None else km.shape[0] for km in kmers],
+                            S, M2, devs)
+        is_source = _each(devs, lambda s: ~sents[s] & (got[s] < 0))
+        if _sum_all(devs, _total(ovf1 + ovf2)) == 0:
             break
         M2 *= 2
     del sufs, pres, recvR, recvQ
-    cap_src = max(1, int(torch.stack([x.sum().to(devs[0]) for x in is_source]).max()))
+    cap_src = max(1, _max_all(devs, int(torch.stack(
+        [is_source[s].sum().to(devs[loc[0]]) for s in loc]).max())))
 
     # ---- phase D: dummies + node sample-sort
     send_max = R1 + (k - 1) * cap_src + 1
     M3 = max(1, int(np.ceil(slack * send_max / S)))
-    allk = []
-    for s in range(S):
+    allk = [None] * S
+    for s in loc:
         km, src_mask = kmers[s], is_source[s]
         pos = torch.cumsum(src_mask.to(torch.int64), 0) - 1
         srcbuf = _scatter_rows(kj.sentinel_rows(cap_src + 1, Pp, devs[s]),
@@ -394,18 +594,20 @@ def sharded_sbwt_build(
             blocks.append(_resent(kj.shift_left_rows(kj.mask_low_rows(srcbuf, j), k - j), ssent))
         root = (torch.zeros((1, Pp), dtype=torch.int64, device=devs[s]) if s == 0
                 else kj.sentinel_rows(1, Pp, devs[s]))
-        allk.append(torch.cat(blocks + [root]))
+        allk[s] = torch.cat(blocks + [root])
     del kmers, is_source
     while True:
         capN = S * M3
         recv, _, ovf, _ = _exchange(allk, spl1, S, M3, devs)
-        if _total(ovf) == 0:
+        if _sum_all(devs, _total(ovf)) == 0:
             break
         M3 *= 2
     del allk
-    nodes, mn = zip(*(_sort_dedup_compact(r, capN) for r in recv))
+    nodes, mn = [None] * S, [None] * S
+    for s in loc:
+        nodes[s], mn[s] = _sort_dedup_compact(recv[s], capN)
     del recv
-    mn_host = torch.stack([x.to(devs[0]) for x in mn]).cpu().numpy().astype(np.int64)
+    mn_host = _shard_ints(devs, mn)
     n_nodes = int(mn_host.sum())
     node_start = np.zeros(S, np.int64)
     node_start[1:] = np.cumsum(mn_host)[:-1]
@@ -413,64 +615,60 @@ def sharded_sbwt_build(
     # ---- phase E: suffix-group firsts + in-edges -> sharded bit rows
     M4 = max(1, int(np.ceil(slack * capN / S)))
     M5 = max(1, int(np.ceil(slack * capN / S)))
-    idx = {d: torch.arange(capN, device=d) for d in devs}
+    idx = {devs[s]: torch.arange(capN, device=devs[s]) for s in loc}
     nstart = _per_device(devs, node_start)
-    valid, nsuf = [], []
-    for s in range(S):
-        v = idx[devs[s]] < int(mn_host[s])
-        valid.append(v)
-        nsuf.append(_resent(kj.shift_right3_rows(nodes[s]), ~v))
+    valid = _each(devs, lambda s: idx[devs[s]] < int(mn_host[s]))
+    nsuf = _each(devs, lambda s: _resent(kj.shift_right3_rows(nodes[s]), ~valid[s]))
     # the halo: the last valid suffix of the nearest non-empty shard left
-    # (JAX's all_gather + carry loop, on the counts already read)
-    firsts, gidxs = [], []
-    carry = kj.sentinel_rows(1, Pp, devs[0])
-    for s in range(S):
-        prev_row = torch.cat([carry.to(devs[s]), nsuf[s][:-1]])
-        if mn_host[s] > 0:
-            carry = nsuf[s][int(mn_host[s]) - 1 : int(mn_host[s])]
+    # (JAX's all_gather + carry loop, on the counts already read); an
+    # empty shard's row is a sentinel, never picked
+    lasts = _all_gather(devs, _each(devs, lambda s: nsuf[s][max(int(mn_host[s]) - 1, 0):][:1]))
+    firsts, gidxs = [None] * S, [None] * S
+    for s in loc:
+        left = [t for t in range(s) if mn_host[t] > 0]
+        carry = (_move(devs, lasts[left[-1]], devs[s]) if left
+                 else kj.sentinel_rows(1, Pp, devs[s]))
+        prev_row = torch.cat([carry, nsuf[s][:-1]])
         diff = (nsuf[s] != prev_row).any(dim=1)
-        gidx = int(node_start[s]) + idx[devs[s]]
-        firsts.append(valid[s] & (diff | (gidx == 0)))
-        gidxs.append(gidx)
-    gkeys = [_resent(nsuf[s], ~firsts[s]) for s in range(S)]
-    gvals = [[torch.where(firsts[s], gidxs[s], -1)] for s in range(S)]
-    chs = [kj.top_char_rows(nodes[s], k) for s in range(S)]
-    nonroot = [valid[s] & (chs[s] != 0) for s in range(S)]
-    qks = [_resent(kj.mask_low_rows(nodes[s], k - 1), ~nonroot[s]) for s in range(S)]
-    del nsuf, firsts
+        gidxs[s] = int(node_start[s]) + idx[devs[s]]
+        firsts[s] = valid[s] & (diff | (gidxs[s] == 0))
+    gkeys = _each(devs, lambda s: _resent(nsuf[s], ~firsts[s]))
+    gvals = _each(devs, lambda s: [torch.where(firsts[s], gidxs[s], -1)])
+    chs = _each(devs, lambda s: kj.top_char_rows(nodes[s], k))
+    nonroot = _each(devs, lambda s: valid[s] & (chs[s] != 0))
+    qks = _each(devs, lambda s: _resent(kj.mask_low_rows(nodes[s], k - 1), ~nonroot[s]))
+    del nsuf, firsts, lasts
     while True:
         recvR, rpay, ovfA, _ = _exchange(gkeys, spl2, S, M4, devs, gvals)
         recvQ, _, ovfB, ctxQ = _exchange(qks, spl2, S, M4, devs)
-        ans = [kj.match_rows(recvQ[s], recvR[s], rpay[s][0]) for s in range(S)]
+        ans = _each(devs, lambda s: kj.match_rows(recvQ[s], recvR[s], rpay[s][0]))
         tf = _answers_back(ans, ctxQ, [capN] * S, S, M4, devs)
-        miss = [(nonroot[s] & (tf[s] < 0)).sum() for s in range(S)]
+        miss = _each(devs, lambda s: (nonroot[s] & (tf[s] < 0)).sum())
         # route (target first, char) to the owning node-range shard
-        own = []
-        for s in range(S):
-            eligible = nonroot[s] & (tf[s] >= 0)
-            owner = torch.searchsorted(nstart[devs[s]], tf[s].clamp(min=0), right=True) - 1
-            own.append(torch.where(eligible, owner, S))
-        (recvE, ovfC) = _route_by_owner(own, [(tf[s], chs[s]) for s in range(S)], S, M5, devs)
-        if _total(ovfA + ovfB + ovfC) == 0:
+        own = _each(devs, lambda s: torch.where(
+            nonroot[s] & (tf[s] >= 0),
+            torch.searchsorted(nstart[devs[s]], tf[s].clamp(min=0), right=True) - 1, S))
+        recvE, ovfC = _route_by_owner(own, _each(devs, lambda s: (tf[s], chs[s])), S, M5, devs)
+        if _sum_all(devs, _total(ovfA + ovfB + ovfC)) == 0:
             break
         M4 *= 2
         M5 *= 2
-    if _total(miss) != 0:
+    if _sum_all(devs, _total(miss)) != 0:
         raise AssertionError("sharded SBWT construction: missing predecessor group")
 
-    bit_parts = []
-    for s in range(S):
+    bit_parts = [None] * S
+    for s in loc:
         tf_r, ch_r = recvE[s]
         okR = tf_r >= 0
         locp = tf_r - int(node_start[s])
         okR = okR & (locp >= 0) & (locp < capN)
         bits = torch.zeros((4, capN + 1), dtype=torch.uint8, device=devs[s])
         bits[torch.where(okR, ch_r - 1, 0), torch.where(okR, locp, capN)] = 1
-        bit_parts.append(bits[:, : int(mn_host[s])].cpu().numpy())
-    bit_rows = np.concatenate(bit_parts, axis=1)
+        bit_parts[s] = bits[:, : int(mn_host[s])]
+    bit_rows = np.concatenate(_host(devs, bit_parts), axis=1)
     sbwt = PlainMatrixSBWT.from_bit_rows(bit_rows, k=k, n_kmers=n_kmers)
     if return_keys:
-        segs = [nodes[s][: int(mn_host[s])].cpu().numpy() for s in range(S)]
+        segs = _host(devs, _each(devs, lambda s: nodes[s][: int(mn_host[s])]))
         return sbwt, kj.to_host(np.concatenate(segs, axis=0))
     return sbwt
 
@@ -493,6 +691,7 @@ def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
 
     devs = flat_devices(mesh)
     S = len(devs)
+    loc = _local(devs)
     k = sbwt.get_k()
     n_nodes = sbwt.number_of_subsets()
     Pp = kj.n_planes(k)
@@ -602,36 +801,38 @@ def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
 
     # ---- phase A: ranks + realignment + window minimum
     # window keys to their node shard, the windows' starts as payload
-    ar = {d: torch.arange(max(B, Mn), device=d) for d in devs}
+    ar = {devs[s]: torch.arange(max(B, Mn), device=devs[s]) for s in loc}
     recv, rpay, ovfA, ctx = _exchange(wk_d, spl_d, S, M1, devs,
-                                      [[s * B + ar[devs[s]][:B]] for s in range(S)])
+                                      _each(devs, lambda s: [s * B + ar[devs[s]][:B]]))
     del wk_d
-    colex_a, su_a, pos_sh = [], [], []
-    for s in range(S):
+    colex_a, su_a, pos_sh = [None] * S, [None] * S, [None] * S
+    for s in loc:
         idx = kj.match_rows(recv[s], nodes_d[s], ar[devs[s]][:Mn])
         # the shard's dense position table: the routed window's global
         # END lands at its node's local slot (one window a real node in a
         # DSPSS; dummies stay -1), the input of ShardedIndex.build
         pos = torch.full((Mn + 1,), -1, dtype=torch.int64, device=devs[s])
-        pos_sh.append(_scatter_rows(pos, torch.where(idx >= 0, idx, Mn), rpay[s][0] + (k - 1), Mn))
-        colex_a.append(torch.where(idx >= 0, s * Mn + idx, -1))
-        su_a.append(torch.where(idx >= 0, su_d[s][idx.clamp(min=0)], -1))
+        pos_sh[s] = _scatter_rows(pos, torch.where(idx >= 0, idx, Mn), rpay[s][0] + (k - 1), Mn)
+        colex_a[s] = torch.where(idx >= 0, s * Mn + idx, -1)
+        su_a[s] = torch.where(idx >= 0, su_d[s][idx.clamp(min=0)], -1)
     del recv, rpay, nodes_d
     colex_b = _answers_back(colex_a, ctx, [B] * S, S, M1, devs)
     su_b = _answers_back(su_a, ctx, [B] * S, S, M1, devs)
-    miss = [(val_d[s] & (colex_b[s] < 0)).sum() for s in range(S)]
-    wlen = [torch.where(val_d[s], su_b[s], k + 2) for s in range(S)]
-    wcol = [torch.where(val_d[s], colex_b[s], 0) for s in range(S)]
+    miss = _each(devs, lambda s: (val_d[s] & (colex_b[s] < 0)).sum())
+    wlen = _each(devs, lambda s: torch.where(val_d[s], su_b[s], k + 2))
+    wcol = _each(devs, lambda s: torch.where(val_d[s], colex_b[s], 0))
     # per-START candidate -> per-END candidate: shift right k-1 across
-    # shards (the left neighbour's last k-1; shard 0 takes the fill)
-    e = []
-    for s in range(S):
+    # shards (the left neighbour's last k-1, a halo; shard 0 takes the
+    # fill)
+    tails = _all_gather(devs, _each(devs, lambda s: torch.stack(
+        [wlen[s][B - (k - 1):], wcol[s][B - (k - 1):]])))
+    e = [None] * S
+    for s in loc:
         if s == 0:
             halo_l = torch.full((k - 1,), k + 2, dtype=torch.int64, device=devs[s])
             halo_c = torch.zeros(k - 1, dtype=torch.int64, device=devs[s])
         else:
-            halo_l = wlen[s - 1][B - (k - 1):].to(devs[s])
-            halo_c = wcol[s - 1][B - (k - 1):].to(devs[s])
+            halo_l, halo_c = _move(devs, tails[s - 1], devs[s])
         e_len = torch.cat([halo_l, wlen[s][: B - (k - 1)]])
         e_col = torch.cat([halo_c, wcol[s][: B - (k - 1)]])
         has_pc = pcl_d[s] <= k + 1
@@ -639,13 +840,14 @@ def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
         e_col = torch.where(has_pc, pcc_d[s], e_col)
         # the (hi, lo) uint32 pair of JAX as one 64-bit key: hi = len << 16
         # | col >> 15, lo = (col & 0x7FFF) << 8 | r
-        e.append(((((e_len & U32) << 16) | (e_col >> 15)) << 32) | ((e_col & 0x7FFF) << 8))
-    del wlen, wcol, pcl_d, pcc_d
-    outs = []
-    for s in range(S):
-        # right halo for the window minimum (ends t1 .. t1+k-2): the right
-        # neighbour's first k-1; the last shard takes the fill
-        rh = (e[s + 1][: k - 1].to(devs[s]) if s + 1 < S
+        e[s] = ((((e_len & U32) << 16) | (e_col >> 15)) << 32) | ((e_col & 0x7FFF) << 8)
+    del wlen, wcol, pcl_d, pcc_d, tails
+    # right halo for the window minimum (ends t1 .. t1+k-2): the right
+    # neighbour's first k-1; the last shard takes the fill
+    heads = _all_gather(devs, _each(devs, lambda s: e[s][: k - 1]))
+    outs = [None] * S
+    for s in loc:
+        rh = (_move(devs, heads[s + 1], devs[s]) if s + 1 < S
               else torch.full((k - 1,), BIG, dtype=torch.int64, device=devs[s]))
         ext = torch.cat([e[s], rh])
         fin = torch.full((B,), BIG, dtype=torch.int64, device=devs[s])
@@ -663,31 +865,32 @@ def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
         st_u = starts_d[devs[s]][uid.clamp(max=n_u - 1)]
         local_end = ws_g - st_u + fin_r
         order_g = int(base_ord[s]) + torch.cumsum(valid.to(torch.int64), 0) - 1
-        outs.append((fin_col, local_end, order_g, ws_g + fin_r, valid, none_cnt))
-    del e
-    if _total(miss) != 0:
+        outs[s] = (fin_col, local_end, order_g, ws_g + fin_r, valid, none_cnt)
+    del e, heads
+    if _sum_all(devs, _total(miss)) != 0:
         raise AssertionError("sharded finimizer build: window k-mer missing "
                              "from the node set (input not a DSPSS?)")
-    if _total(ovfA) != 0:
+    if _sum_all(devs, _total(ovfA)) != 0:
         raise AssertionError("sharded finimizer build: the exact window capacity overflowed")
-    if _total([o[5] for o in outs]) != 0:
+    if _sum_all(devs, _total([None if o is None else o[5] for o in outs])) != 0:
         raise AssertionError("sharded finimizer build: window without a "
                              "candidate (impossible for a valid t=1 DSPSS)")
-    if int(torch.stack([o[1].max().to(devs[0]) for o in outs]).max().clamp(min=0)) >= (1 << 30):
+    max_end = int(torch.stack([outs[s][1].max().to(devs[loc[0]]) for s in loc]).max())
+    if _max_all(devs, max_end) >= (1 << 30):
         raise ValueError("unitig longer than 2^30: scatter key overflow")
 
     # ---- phase B: route rows to node owners, resolve the overwrite rule
     M2 = max(1, int(np.ceil(slack * n_valid / S)))
-    own = [torch.where(o[4], o[0] // Mn, S) for o in outs]
-    rows = [o[:4] for o in outs]
+    own = _each(devs, lambda s: torch.where(outs[s][4], outs[s][0] // Mn, S))
+    rows = _each(devs, lambda s: outs[s][:4])
     while True:
         recvB, ovfB = _route_by_owner(own, rows, S, M2, devs)
-        if _total(ovfB) == 0:
+        if _sum_all(devs, _total(ovfB)) == 0:
             break
         M2 *= 2
     del outs, own, rows
-    fmin_parts, glob_parts = [], []
-    for s in range(S):
+    fmin_parts, glob_parts = [None] * S, [None] * S
+    for s in loc:
         col_r, le_r, od_r, ge_r = recvB[s]
         got = col_r >= 0
         coll = torch.where(got, col_r - s * Mn, 0)
@@ -702,20 +905,19 @@ def sharded_finimizer_select(sbwt, LCS, packed, node_keys, mesh,
         nxt_col = torch.cat([s_col[1:], s_col.new_full((1,), -1)])
         nxt_got = torch.cat([s_got[1:], s_got.new_zeros(1)])
         winner = s_got & ((s_col != nxt_col) | ~nxt_got)
-        fmin_loc = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.uint8, device=devs[s]),
-                                 torch.where(s_got, s_col, Mn), torch.ones_like(s_col, dtype=torch.uint8), Mn)
-        glob_loc = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.int64, device=devs[s]),
-                                 torch.where(winner, s_col, Mn), s_ge, Mn)
-        fmin_parts.append(fmin_loc.cpu().numpy())
-        glob_parts.append(glob_loc.cpu().numpy())
+        fmin_parts[s] = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.uint8, device=devs[s]),
+                                      torch.where(s_got, s_col, Mn),
+                                      torch.ones_like(s_col, dtype=torch.uint8), Mn)
+        glob_parts[s] = _scatter_rows(torch.zeros(Mn + 1, dtype=torch.int64, device=devs[s]),
+                                      torch.where(winner, s_col, Mn), s_ge, Mn)
 
-    fmin_bv = np.concatenate(fmin_parts)[:n_nodes].astype(np.uint8)
-    global_offsets = np.concatenate(glob_parts)[:n_nodes].clip(0).astype(np.uint64)
+    fmin_bv = np.concatenate(_host(devs, fmin_parts))[:n_nodes].astype(np.uint8)
+    global_offsets = np.concatenate(_host(devs, glob_parts))[:n_nodes].clip(0).astype(np.uint64)
     marked = np.flatnonzero(fmin_bv).astype(np.int64)
     stats_packed = np.sort((su[marked].astype(np.int64) << 41) | (marked << 1))
     stats = FinimizerStatsSet(stats_packed, n_nodes)
     if return_pos:
-        pos_shards = [p.cpu().numpy().astype(np.int32) for p in pos_sh]
+        pos_shards = [p.astype(np.int32) for p in _host(devs, pos_sh)]
         return fmin_bv, global_offsets, stats, (pos_shards, Mn)
     return fmin_bv, global_offsets, stats
 
@@ -728,11 +930,13 @@ def sharded_index_build(seqs, k: int, mesh=None, n_devices: Optional[int] = None
     (sharded_finimizer_select). The host keeps the O(n_unitigs * k)
     control plane (unitig permutation, prefix candidates). Equals
     FinimizerIndexBuilder's index (tests/test_torch_shard_build.py), and
-    carries index.mesh_pos for parallel.mesh.ShardedIndex.build."""
+    carries index.mesh_pos for parallel.mesh.ShardedIndex.build. Over a
+    distributed.global_devices list every rank runs it together, holds
+    only its own shards, and returns the whole index."""
     from finito_tpu_torch.index.index import FinimizerIndex
     from finito_tpu_torch.index.packed_strings import permute_unitigs
     from finito_tpu_torch.io.seqdb import SeqDB
-    from finito_tpu_torch.parallel.mesh import Mesh, sharded_lcs_fn
+    from finito_tpu_torch.parallel.mesh import sharded_lcs_fn
     from finito_tpu_torch.utils.bits import bit_width_for_max
 
     devs = flat_devices(mesh, n_devices, devices)
@@ -743,9 +947,7 @@ def sharded_index_build(seqs, k: int, mesh=None, n_devices: Optional[int] = None
     sbwt, node_keys = sharded_sbwt_build(
         [unitigs.get_codes(i) for i in range(len(unitigs))], k, devices=devs, return_keys=True,
     )
-    grid = np.empty((1, len(devs)), dtype=object)
-    grid[0, :] = devs
-    LCS = sharded_lcs_fn(Mesh(grid), sbwt)
+    LCS = sharded_lcs_fn(devs, sbwt)
     packed, ustart, _perm = permute_unitigs(sbwt, unitigs)
     fmin_bv, global_offsets, stats, mesh_pos = sharded_finimizer_select(
         sbwt, LCS, packed, node_keys, devs, return_pos=True

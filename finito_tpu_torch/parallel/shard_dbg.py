@@ -22,7 +22,10 @@ routed-join machinery of the mesh SBWT build (parallel.shard_build):
 
 Canonical mode only (odd k). Shards are a flat list of torch devices in
 one process (parallel.shard_build.flat_devices); each exchange has a
-fixed capacity with an overflow retry.
+fixed capacity with an overflow retry. A device list that spans
+processes is refused: the JAX package's build reads every shard's nodes
+on the host (np.asarray of the sharded array), so it runs in one
+process too.
 """
 
 from __future__ import annotations
@@ -83,6 +86,9 @@ def sharded_unitig_build(
     if not (2 <= k <= 250) or k % 2 == 0:
         raise ValueError("sharded unitig build: canonical mode needs odd k in [3, 249]")
     devs = flat_devices(mesh, n_devices, devices)
+    if devs.spans:
+        raise NotImplementedError("sharded_unitig_build runs in one process (as the JAX "
+                                  "package's); give it this process's devices")
     S = len(devs)
     Pp = kj.n_planes(k)
 

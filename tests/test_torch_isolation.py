@@ -6,7 +6,9 @@ finito_tpu_torch.cli`` on the CPU, each command with exit code 0
 unitigs --mesh 2 and the mesh index build on 2 CPU shards, byte-identical
 to the host builds); then the repeat-dense workload, the device-resident
 pipeline of every engine mode and the in-scan replica twin, against the
-index-free oracle."""
+index-free oracle. The cross-process mesh's workers
+(tests/test_torch_xproc.py: 2 processes in a gloo group, every locate,
+build and LCS case) run with the same modules blocked."""
 
 from __future__ import annotations
 
@@ -128,3 +130,11 @@ def test_port_runs_with_jax_package_blocked(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
     assert "ISOLATED OK" in r.stdout
+
+
+def test_cross_process_workers_with_jax_package_blocked(tmp_path):
+    from test_torch_xproc import launch_workers, wait_workers
+
+    logs = wait_workers(launch_workers(tmp_path))
+    for pid, (so, _) in enumerate(logs):
+        assert f"rank{pid}: done" in so
