@@ -5,9 +5,10 @@
 
 Drives the port's main paths, ``search-fmin`` (every --engine, and the
 minimizer engine on (dp, tp) meshes), ``kmer-mapper query``, the mesh
-builds (``sharded_index_build``, ``unitigs --mesh``) and the
-device-resident pipeline of every engine, through the port's CLI and
-entry points, at realistic sizes, and checks every answer.
+builds (``sharded_index_build``, ``unitigs --mesh``), the
+device-resident pipeline of every engine and the tooling
+(finito_tpu_torch.tools, finito_tpu_torch.entry), through the port's
+CLI and entry points, at realistic sizes, and checks every answer.
 Phases, one line or more each:
 
   1. device: requires CUDA, prints the card's name and power limit;
@@ -20,7 +21,7 @@ Phases, one line or more each:
      time and the plain version's (CUDA events), and the bound;
   4. per index (1 Mbp: fused slot rows, v1 locate; 4,641,652 bp, E. coli
      K-12 MG1655's length: narrow descriptor, v2 locate): a random genome
-     cut into unitigs with k-1 overlaps (gen_dspss below, k=31),
+     cut into unitigs with k-1 overlaps (utils.synth.gen_dspss, k=31),
      sbwt-build and build-fmin through the port's CLI, 16,384 mutated
      128 bp reads plus short and N-containing reads;
      a. search-fmin --device cuda, the locate form it ran, every window
@@ -97,7 +98,17 @@ Phases, one line or more each:
         per call, the device-busy share; one JSON line a pipeline;
   5. the repeat-dense cell: gen_repeat_genome(4,000,000, REPEAT_PARAMS),
      its non-canonical dBG unitigs and index, then j.'s four pipelines
-     and the twin, checked against the index-free kmer_location_oracle.
+     and the twin, checked against the index-free kmer_location_oracle;
+  6. the tooling (tools_phase), every tool on cuda:0 through its own
+     entry point, one JSON line each: tools.micro at n = 2^22 and 2^26;
+     entry()'s locate step against the same step on the CPU;
+     dryrun_multichip on 8 x cuda:0; tools.genome_scale_verify at
+     100 Mbp, k=63, tp=8 and tools.pangenome_verify --mesh-build at its
+     default shape (2 Mbp base, 20 variants, k=63, tp=8), each ok;
+     tools.build_cache at 4,641,652 bp, then tools.h_sweep on it (h 23
+     and 25, v1 and v2); tools.lane_sweep at 400 kbp, B 8192, chunks 0
+     and auto. The front-end kernel is held bit for bit to its plain
+     version on every input these runs gave it (k=63 included).
 
 Prints the kernels' JSON line (launches in total and per main-path run),
 the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
@@ -173,11 +184,18 @@ PIPE_VERIFY = 8  # reads per pipeline also held to FinimizerIndex.search
 PIPE_TIMED_S = 2.0  # aimed seconds of a pipeline's timed calls, trials together
 PIPE_TRIALS = 3
 TWIN_READS = 1024  # reads of the in-scan replica twin (make_replica_locate)
-# the repeat-dense cell: utils.synth.gen_repeat_genome with bench.py's
-# REPEAT_PARAMS (bench.py:47, copied: the script imports nothing of
-# bench), non-canonical dBG unitigs at k = K
+# the repeat-dense cell: utils.synth.gen_repeat_genome with
+# utils.synth.REPEAT_PARAMS, non-canonical dBG unitigs at k = K
 REPEAT_LEN = 4_000_000
-REPEAT_PARAMS = dict(seg_frac=0.35, snp_rate=0.004, div_rate=0.04)
+# phase 6, the tooling: every tool on one card (a mesh's shards all on it)
+TOOLS_DEVICE = "cuda:0"
+TOOLS_MICRO_N_LOG2 = (22, 26)  # a 16 MiB table in the 50 MB L2, and 256 MiB past it
+TOOLS_GENOME_SCALE = 100_000_000  # k=63, tp=8; 1 Gbp runs through genome_scale_verify alone
+TOOLS_CACHE_GENOME = GENOMES[1]  # build_cache, then h_sweep on its entry
+TOOLS_HS = "23,25"
+TOOLS_PANGENOME_ARGS = ["--mesh-build"]  # at its default shape: 2 Mbp base, 20 variants, k=63, tp=8
+TOOLS_LANE_GENOME = 400_000
+TOOLS_LANE_BATCH = 8192
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
@@ -382,40 +400,14 @@ def sweep_phase(rng, card: str) -> None:
         row("batch", B=B)
 
 
-def draw_cuts(rng, genome_len: int, k: int, mean_unitig: int = 2000) -> np.ndarray:
-    """Unitig cut points; unitig i = genome[cuts[i] : cuts[i+1] + k - 1]."""
-    cuts = [0]
-    while cuts[-1] < genome_len - k:
-        cuts.append(min(genome_len - k + 1, cuts[-1] + int(rng.integers(mean_unitig // 2, mean_unitig * 2))))
-    return np.asarray(cuts, np.int64)
-
-
-def gen_dspss(rng, genome_len: int, k: int, mean_unitig: int = 2000):
-    """Random genome cut into unitigs overlapping by k-1 (k-mer set
-    preserved, each k-mer occurs exactly once). Returns (genome, unitigs
-    as bytes, cuts)."""
-    from finito_tpu_torch.io.seqdb import decode_seq
-    from finito_tpu_torch.sbwt import keys as kw
-
-    while True:
-        genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
-        # k-mer distinctness (astronomically likely for k=31): native
-        # rolling pack + radix sort, one pass each
-        wk = kw.sort_keys(kw.pack_windows(genome, k))
-        if not np.any(kw.eq_adjacent(wk)):
-            break
-    cuts = draw_cuts(rng, genome_len, k, mean_unitig)
-    unitigs = [decode_seq(genome[a : b + k - 1]) for a, b in zip(cuts[:-1], cuts[1:])]
-    return genome, unitigs, cuts
-
-
 def build_index(genome_len: int, seed: int, work: str):
     """DSPSS genome -> unitig FASTA -> sbwt-build + build-fmin through the
     port's CLI. Returns (genome, cuts, index prefix, build seconds)."""
     from finito_tpu_torch import cli
+    from finito_tpu_torch.utils.synth import gen_dspss
 
     t0 = time.perf_counter()
-    genome, unitigs, cuts = gen_dspss(np.random.default_rng(seed), genome_len, K)
+    genome, unitigs, cuts = gen_dspss(np.random.default_rng(seed), genome_len, K, return_cuts=True)
     fna = os.path.join(work, "unitigs.fna")
     with open(fna, "wb") as f:
         for i, u in enumerate(unitigs):
@@ -1071,7 +1063,7 @@ def repeat_phase(seed: int) -> dict:
     from finito_tpu_torch.query.engine import DeviceQueryEngine
     from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
     from finito_tpu_torch.sbwt.lcs import lcs_array
-    from finito_tpu_torch.utils.synth import gen_repeat_genome, kmer_location_oracle
+    from finito_tpu_torch.utils.synth import REPEAT_PARAMS, gen_repeat_genome, kmer_location_oracle
 
     t0 = time.perf_counter()
     genome = gen_repeat_genome(np.random.default_rng(seed + 11), REPEAT_LEN, **REPEAT_PARAMS)
@@ -1459,42 +1451,6 @@ def lcs_phase(genome_len: int, index) -> None:
     log(json.dumps(row))
 
 
-HOST_RSS_SOURCE = "statm sampled every 10 ms"  # how host_peak measures
-
-
-@contextlib.contextmanager
-def host_peak():
-    """The peak resident set of this process while the block runs, MiB,
-    in the yielded dict's "mib": a thread samples /proc/self/statm every
-    10 ms (VmHWM cannot be reset, and some kernels do not report it);
-    "mib_at_start" is the resident set when it begins."""
-    import threading
-
-    page = os.sysconf("SC_PAGE_SIZE")
-
-    def rss() -> float:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * page / 2**20
-
-    box = {"mib": 0.0, "mib_at_start": rss()}
-    stop = threading.Event()
-
-    def sample() -> None:
-        while True:
-            box["mib"] = max(box["mib"], rss())
-            if stop.wait(0.01):
-                return
-
-    thread = threading.Thread(target=sample, daemon=True)
-    thread.start()
-    try:
-        yield box
-    finally:
-        stop.set()
-        thread.join()
-        box["mib"] = max(box["mib"], rss())
-
-
 @contextlib.contextmanager
 def timed_calls(targets):
     """Seconds of every call, synchronised before and after, of each
@@ -1574,6 +1530,7 @@ def mesh_index_build_phase(genome_len: int, prefix: str, fna: str, work: str, in
     from finito_tpu_torch.query.engine import build_position_table
     from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
     from finito_tpu_torch.sbwt.lcs import lcs_array
+    from finito_tpu_torch.tools import HOST_RSS_SOURCE, host_peak
 
     n_sh = MESH_BUILD_SHARDS
     seqs = [bytes(seq) for _h, seq in read_all_records(fna)]
@@ -1683,6 +1640,7 @@ def mesh_unitig_phase(seed: int, work: str) -> int:
     from finito_tpu_torch import cli, dbg
     from finito_tpu_torch.io.seqdb import decode_seq
     from finito_tpu_torch.parallel import shard_dbg
+    from finito_tpu_torch.tools import HOST_RSS_SOURCE, host_peak
 
     base_len, n_var, snp, k = PANGENOME
     n_sh = MESH_BUILD_SHARDS
@@ -2162,6 +2120,116 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
     return launches, mesh_launches
 
 
+def tool_run(what: str, fn):
+    """fn() (an entry point) under run_counted: the front end's count set
+    to 0 just before it and read just after, its standard output
+    captured, and the kernel held bit for bit to its plain version on
+    every input the run gave it. Returns (fn's result, its standard
+    output, wall seconds, launches)."""
+    import torch
+
+    seen, out, box = [], io.StringIO(), {}
+
+    def main(_argv):
+        with contextlib.redirect_stdout(out):
+            box["result"] = fn()
+        return 0
+
+    _, _, wall, launches = run_counted(main, [], seen)
+    if launches or seen:
+        check_inputs(what, seen, launches)
+    del seen
+    torch.cuda.empty_cache()
+    return box["result"], out.getvalue(), wall, launches
+
+
+def tool_main(name: str, module, argv):
+    """A tool's main(argv) under tool_run, which must return 0. Returns
+    (the last line of its standard output as JSON, None when it printed
+    none; the output; wall seconds; launches)."""
+    rc, out, wall, launches = tool_run(name, lambda: module.main(argv))
+    if rc != 0:
+        raise AssertionError(f"{name} {' '.join(argv)} returned {rc}: {out[-3000:]}")
+    lines = out.strip().splitlines()
+    return (json.loads(lines[-1]) if lines else None), out, wall, launches
+
+
+def tools_phase(work: str) -> dict:
+    """Phase 6: the port's tooling and entry points on cuda:0, each
+    through its own entry point under tool_run, one JSON line each:
+    micro at its default sizes and at n = 2^26; entry()'s step against
+    the plain path (the same step on the CPU); dryrun_multichip on 8 x
+    cuda:0; genome_scale_verify and pangenome_verify --mesh-build (ok
+    required); build_cache, then h_sweep on its entry; lane_sweep.
+    Returns the front-end launches of each."""
+    import torch
+
+    from finito_tpu_torch.entry import dryrun_multichip, entry
+    from finito_tpu_torch.tools import (
+        build_cache,
+        genome_scale_verify,
+        h_sweep,
+        lane_sweep,
+        micro,
+        pangenome_verify,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for n_log2 in TOOLS_MICRO_N_LOG2:
+        _, out, wall, n = tool_main(f"micro n=2^{n_log2}", micro,
+                                    ["--device", TOOLS_DEVICE, "--n-log2", str(n_log2)])
+        log(json.dumps({"tool": "micro", "n_log2": n_log2, "wall_s": wall, "launches": n,
+                        "rows": [json.loads(line) for line in out.strip().splitlines()]}))
+        launches["micro"] = launches.get("micro", 0) + n
+
+    fn, args = entry(TOOLS_DEVICE)
+    got, _, wall, n = tool_run("entry() step", lambda: fn(*args))
+    pfn, pargs = entry("cpu")
+    err = max(int((a.cpu().to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, pfn(*pargs)))
+    if err:
+        raise AssertionError("entry()'s step on the card disagrees with the plain path on the CPU")
+    launches["entry"] = n
+    log(json.dumps({"tool": "entry", "launches": n, "max_abs_err": err, "step_wall_s": wall,
+                    "windows": int(got[0].numel()), "found": int((got[0] >= 0).sum())}))
+
+    summary, _, wall, n = tool_run("dryrun_multichip(8)", lambda: dryrun_multichip(
+        8, devices=[TOOLS_DEVICE] * 8))
+    launches["dryrun_multichip"] = n
+    log(json.dumps({"tool": "dryrun_multichip", "devices": f"{TOOLS_DEVICE} x8", "wall_s": wall,
+                    "launches": n, "summary": summary}))
+
+    for name, module, argv in (
+            ("genome_scale_verify", genome_scale_verify,
+             ["--genome", str(TOOLS_GENOME_SCALE), "--k", "63", "--tp", "8"]),
+            ("pangenome_verify", pangenome_verify, TOOLS_PANGENOME_ARGS)):
+        res, _, wall, n = tool_main(name, module, argv + ["--device", TOOLS_DEVICE])
+        if not res["ok"]:
+            raise AssertionError(f"{name}: not ok: {res}")
+        launches[name] = n
+        log(json.dumps({"tool": name, "argv": argv, "launches": n, "tool_wall_s": wall, **res}))
+
+    cache = os.path.join(work, "cache")
+    _, _, wall_c, launches["build_cache"] = tool_main(
+        "build_cache", build_cache, ["--genome", str(TOOLS_CACHE_GENOME), "--cache-dir", cache])
+    rows, _, wall, launches["h_sweep"] = tool_main(
+        "h_sweep", h_sweep, ["--genome", str(TOOLS_CACHE_GENOME), "--hs", TOOLS_HS,
+                             "--engines", "v1,v2", "--trials", "1", "--cache-dir", cache,
+                             "--device", TOOLS_DEVICE])
+    log(json.dumps({"tool": "h_sweep", "genome": TOOLS_CACHE_GENOME, "build_cache_s": wall_c,
+                    "wall_s": wall, "launches": launches["h_sweep"], "rows": rows}))
+    art, _, wall, launches["lane_sweep"] = tool_main(
+        "lane_sweep", lane_sweep, ["--genome", str(TOOLS_LANE_GENOME), "--batches", str(TOOLS_LANE_BATCH),
+                                   "--chunks", "0,auto", "--reps", "3", "--trials", "1",
+                                   "--cache-dir", cache, "--out", os.path.join(work, "lanes.json"),
+                                   "--device", TOOLS_DEVICE])
+    log(json.dumps({"tool": "lane_sweep", "wall_s": wall, "launches": launches["lane_sweep"],
+                    **art}))
+    log(f"tools phase wall: {time.perf_counter() - t_phase} s")
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0, help="seed of genomes and reads")
@@ -2224,6 +2292,9 @@ def main() -> int:
             launches.update(by_path)
             mesh_launches.update(by_mesh)
     launches.update(repeat_phase(args.seed))
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="smoke_tools_") as work:
+        tools_launches = tools_phase(work)
+    launches.update({f"tools {name}": n for name, n in tools_launches.items()})
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     if foreign:

@@ -153,19 +153,10 @@ def unitigs_cmd(argv: List[str]) -> int:
             raise SystemExit("--min-multiplicity requires the host build (no --mesh)")
         from finito_tpu_torch.io.fastx import SequenceReader
         from finito_tpu_torch.io.seqdb import encode_seq
-        from finito_tpu_torch.parallel.shard_build import flat_devices
+        from finito_tpu_torch.parallel.shard_build import shard_devices
         from finito_tpu_torch.parallel.shard_dbg import sharded_unitig_build
 
-        import torch
-
-        dev = torch.device(args.device)
-        if dev.type == "cuda" and dev.index is None:
-            devices = flat_devices(n_devices=args.mesh)
-        else:
-            n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-            if dev.type == "cuda" and dev.index >= n_cards:
-                raise RuntimeError(f"--device {args.device}: {n_cards} CUDA device(s) visible")
-            devices = flat_devices(devices=[dev] * args.mesh)
+        devices = shard_devices(args.device, args.mesh, fewer_ok=True)
         if len(devices) < args.mesh:
             write_log(f"--mesh {args.mesh}: {len(devices)} card(s) visible, "
                       f"building on {len(devices)} shard(s)", LogLevel.MAJOR)
@@ -569,7 +560,8 @@ def search_fmin(argv: List[str]) -> int:
         "--mesh", default="1,1", metavar="DP,TP",
         help="Device mesh for scale-out (minimizer engine): batch shards "
         "over DP, the unitig text over TP; DP must be a power of two and "
-        "DP*TP devices must be visible (--device cpu repeats the CPU). "
+        "DP*TP cards must be visible with --device cuda (--device cpu or "
+        "one card such as cuda:0 holds every shard). "
         "Default 1,1 (single device).",
     )
     p.add_argument("--device", default="cuda",

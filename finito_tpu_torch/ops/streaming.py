@@ -1,7 +1,7 @@
 """Stream compaction and the two-phase streaming rank engine of the
 port: counterpart of finito_tpu/ops/streaming.py (compact_mask, the
-chunking helpers, make_chain_opt, make_segment_repair's default path and
-make_chain_stream_ranks), in plain torch.
+chunking helpers, make_chain_scan, make_chain_opt, make_segment_repair's
+default path and make_chain_stream_ranks), in plain torch.
 
 Phase A -- the optimistic chain scan (make_chain_opt): a hybrid
 automaton per lane, one Python step per read position. Immature lanes
@@ -98,6 +98,56 @@ def unchunk_grid(grid_ch: torch.Tensor, B: int, L: int, k: int, C: int) -> torch
     head = g[:, 0, : k - 1]
     payload = g[:, :, k - 1 :].reshape(B, -1)
     return torch.cat([head, payload], dim=1)[:, :L]
+
+
+def make_chain_scan(n8: int, k: int, n_nodes: int):
+    """The exact hybrid chain without repair (the JAX package's phase A
+    before make_chain_opt; its caller is tools.micro's step-latency
+    benchmark). run(tab, C, contract_k, edge, codes): (B, L) codes ->
+    (B, L) int32 status of the window ending at each position: rank >= 0
+    found, -1 definitively absent, -2 unknown (positions < k-1 are
+    meaningless). contract_k is accepted for the JAX signature and not
+    read.
+
+    An immature lane tracks the SBWT interval of seq[ks..j] (2 rank
+    gathers a step); at its first window close it hands the singleton to
+    the mature mode, which follows the forward-edge table (1 gather a
+    step). Any failure resets the lane to immature with ks = j+1. One
+    Python step per read position, stacked once at the end."""
+
+    def run(tab, C, contract_k, edge, codes):
+        del contract_k
+        B, L = codes.shape
+        dev = codes.device
+        cs = codes.to(torch.int64)
+        lo = torch.zeros(B, dtype=torch.int64, device=dev)
+        hi = torch.full_like(lo, n_nodes - 1)
+        ks = torch.zeros_like(lo)
+        x = torch.full_like(lo, -1)
+        emits = []
+        for j in range(L):
+            c = cs[:, j]
+            invalid = c > 3
+            em = x >= 0
+            xe = edge[torch.where(em, x * 4 + torch.where(invalid, 0, c), 0)].to(torch.int64)
+            e_found = em & ~invalid & (xe >= 0)
+            nlo, nhi = update_interval24(tab, n8, C, c, lo, hi)
+            failed = invalid | (nlo < 0)
+            had_full_context = ks == j - k + 1
+            close = ~em & ~failed & (j - ks + 1 == k)
+            emit_i = torch.where(
+                close, nlo, torch.where(failed & had_full_context & ~invalid, -1, UNKNOWN)
+            )
+            emit_i = torch.where(invalid, -1, emit_i)
+            emits.append(torch.where(em, torch.where(e_found, xe, -1), emit_i))
+            x = torch.where(e_found, xe, torch.where(close, nlo, -1))
+            any_fail = torch.where(em, ~e_found, failed)
+            lo = torch.where(failed | em, 0, nlo)
+            hi = torch.where(failed | em, n_nodes - 1, nhi)
+            ks = torch.where(any_fail, j + 1, torch.where(em | close, j - k + 2, ks))
+        return torch.stack(emits, dim=1).to(torch.int32)
+
+    return run
 
 
 def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):

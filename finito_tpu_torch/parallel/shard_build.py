@@ -104,12 +104,33 @@ def flat_devices(mesh=None, n_devices: Optional[int] = None, devices=None) -> De
         return mesh.flat
     if mesh is not None and not isinstance(mesh, int):
         return Devices(mesh)
+    n = mesh if isinstance(mesh, int) else (n_devices or torch.cuda.device_count() or 1)
+    return Devices(shard_devices("cuda", n, fewer_ok=True))
+
+
+def shard_devices(name, n: int, fewer_ok: bool = False) -> List[torch.device]:
+    """The n shard devices that a --device name stands for, the one rule
+    of every entry point with a mesh: "cpu" repeats the CPU and a card
+    named by index ("cuda:0") repeats that card; "cuda" takes the first
+    n visible cards, one a shard, and raises when fewer are visible,
+    unless fewer_ok (then the visible ones: for a build whose output
+    does not depend on the shard count). A card asked for and missing
+    raises: nothing falls back to the CPU."""
+    dev = torch.device(name)
+    if dev.type != "cuda":
+        return [dev] * n
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n_cards == 0:
-        raise RuntimeError("the mesh build runs on CUDA devices and none is visible "
-                           "(devices=['cpu'] * N runs N shards on the CPU)")
-    n = mesh if isinstance(mesh, int) else (n_devices or n_cards)
-    return Devices([torch.device("cuda", i) for i in range(min(n, n_cards))])
+        raise RuntimeError(f"needs {n} devices: CUDA is not available, none is visible "
+                           "(--device cpu, or devices=['cpu'] * N, runs every shard on the CPU)")
+    if dev.index is not None:
+        if dev.index >= n_cards:
+            raise RuntimeError(f"device {name!r}: {n_cards} CUDA device(s) visible")
+        return [dev] * n
+    if n_cards < n and not fewer_ok:
+        raise RuntimeError(f"needs {n} devices, found {n_cards} card(s) (--device cuda puts one "
+                           "shard on each card, a named card such as cuda:0 every shard on it)")
+    return [torch.device("cuda", i) for i in range(min(n, n_cards))]
 
 
 # ---- the collectives layer: the one place a collective crosses processes

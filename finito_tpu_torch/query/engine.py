@@ -219,8 +219,9 @@ class DeviceQueryEngine:
         "cuda:1", "cpu"). mesh: optional (dp, tp); with dp * tp > 1
         (minimizer mode only) the locate runs sharded over a (dp, tp)
         mesh (_init_mesh), with the same output. devices: the mesh's
-        devices (may repeat one); by default dp * tp times the CPU when
-        device is "cpu", else the first dp * tp CUDA devices.
+        devices (may repeat one); by default those that device stands for
+        (parallel.shard_build.shard_devices: "cpu" or a named card such
+        as "cuda:0" holds every shard, "cuda" takes dp * tp cards).
         mindex_cache (minimizer mode): optional path; the derived
         MinimizerIndex is loaded from it when it matches this index and
         serialized to it after a build. chunk (stream and replica): the
@@ -306,11 +307,12 @@ class DeviceQueryEngine:
             make_mesh,
             place_minimizer_shards,
         )
+        from finito_tpu_torch.parallel.shard_build import shard_devices
 
         dp, tp = self.mesh_shape
-        if devices is None and self.device.type == "cpu":
-            devices = [self.device] * (dp * tp)
         try:
+            if devices is None:
+                devices = shard_devices(self.device, dp * tp)
             self.mesh = make_mesh(dp * tp, tp=tp, devices=devices)
         except RuntimeError as e:
             raise RuntimeError(f"--mesh {dp},{tp} {e}") from None
@@ -504,13 +506,22 @@ class DeviceQueryEngine:
         uid, off, verify = self._locate_async(self._to_device(padded))
         return uid, off, B, L - self.k + 1, verify
 
-    def locate_batch(self, codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """codes: (B, L) uint8 (pad with 255), L >= k. Returns (B, W) unitig
-        ids and offsets, -1 where the k-mer is absent/invalid."""
+    def locate_batch_async(self, codes: np.ndarray):
+        """locate_batch without the readback of the answers: returns
+        (uid_dev, off_dev, B, W), device tensors padded as dispatched
+        (the (B, W) slice applies at readback), for callers that chain
+        more device work. The capacity check runs here (its counters are
+        the only host read), so the tensors are final."""
         uid, off, B, W, verify = self._locate_batch_deferred(codes)
         fixed = verify() if verify is not None else None
         if fixed is not None:
             uid, off = fixed
+        return uid, off, B, W
+
+    def locate_batch(self, codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """codes: (B, L) uint8 (pad with 255), L >= k. Returns (B, W) unitig
+        ids and offsets, -1 where the k-mer is absent/invalid."""
+        uid, off, B, W = self.locate_batch_async(codes)
         return uid[:B, :W].cpu().numpy(), off[:B, :W].cpu().numpy()
 
     # ---------------- per-read CLI-parity API ----------------
@@ -545,6 +556,32 @@ class DeviceQueryEngine:
             both[2 * j, : c.size] = c
             both[2 * j + 1, : c.size] = (3 - c)[::-1]
         return batch_idx, batch_codes, both
+
+    def _batch_both_strands(self, reads: Sequence[bytes]):
+        """_encode_both_strands, then locate_batch: (batch_idx,
+        batch_codes, uid_b, off_b), uid_b and off_b None when every read
+        was filtered."""
+        batch_idx, batch_codes, both = self._encode_both_strands(reads)
+        if both is None:
+            return batch_idx, batch_codes, None, None
+        uid_b, off_b = self.locate_batch(both)
+        return batch_idx, batch_codes, uid_b, off_b
+
+    def locate_reads_arrays(self, reads: Sequence[bytes]):
+        """Per read, None (a short or non-ACGT read: empty result) or
+        (uid_f, off_f, uid_r, off_r, n_found_f, n_found_r), the (W,)
+        arrays of the forward strand and of the reverse complement."""
+        k = self.k
+        out = [None] * len(reads)
+        batch_idx, batch_codes, uid_b, off_b = self._batch_both_strands(reads)
+        if uid_b is not None:
+            for j, i in enumerate(batch_idx):
+                n = batch_codes[j].size - k + 1
+                uf, of = uid_b[2 * j, :n], off_b[2 * j, :n]
+                ur, orr = uid_b[2 * j + 1, :n], off_b[2 * j + 1, :n]
+                out[i] = (uf, of, ur, orr,
+                          int(np.count_nonzero(uf >= 0)), int(np.count_nonzero(ur >= 0)))
+        return out
 
     def merged_pairs_flat(self, reads: Sequence[bytes]):
         """Bulk-output form of the fwd+RC merge: (line_lens, u_flat,
@@ -633,10 +670,9 @@ class DeviceQueryEngine:
         results: List[Tuple[QueryResult, QueryResult]] = [
             (QueryResult([], 0), QueryResult([], 0)) for _ in reads
         ]
-        batch_idx, batch_codes, both = self._encode_both_strands(reads)
-        if both is None:
+        batch_idx, batch_codes, uid_b, off_b = self._batch_both_strands(reads)
+        if uid_b is None:
             return results
-        uid_b, off_b = self.locate_batch(both)
         for j, i in enumerate(batch_idx):
             n = batch_codes[j].size - k + 1
             f, r = (

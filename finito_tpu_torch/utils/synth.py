@@ -13,8 +13,10 @@ every distinct k-mer once), so ground truth comes from
 kmer_location_oracle: a sort and merge-join of the query windows against
 the unitig windows, with no index structure involved, exact for k <= 32.
 
-The same rng state gives the same arrays as the JAX package's copy: every
-rng call stays in its order, with its dtype.
+The DSPSS generator (gen_dspss, draw_cuts) and the repeat cell's
+parameters (REPEAT_PARAMS) are numpy copies of bench.py's. The same rng
+state gives the same arrays as the JAX package's copies: every rng call
+stays in its order, with its dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +24,44 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+
+# the repeat cell's generator parameters (bench.py's REPEAT_PARAMS): these
+# raise the surviving shared-minimizer k-mers until the cell stresses the
+# multi-occurrence slow path; a change invalidates cached repeat indexes
+REPEAT_PARAMS = dict(seg_frac=0.35, snp_rate=0.004, div_rate=0.04)
+
+
+def draw_cuts(rng, genome_len: int, k: int, mean_unitig: int = 2000) -> np.ndarray:
+    """Unitig cut points; unitig i = genome[cuts[i] : cuts[i+1] + k - 1].
+    Deterministic in the rng state, so a cached genome's cuts can be
+    regenerated by replaying the same rng (tools.cache)."""
+    cuts = [0]
+    while cuts[-1] < genome_len - k:
+        step = int(rng.integers(mean_unitig // 2, mean_unitig * 2))
+        cuts.append(min(genome_len - k + 1, cuts[-1] + step))
+    return np.asarray(cuts, np.int64)
+
+
+def gen_dspss(rng, genome_len: int, k: int, mean_unitig: int = 2000, return_cuts: bool = False):
+    """Random genome cut into unitigs overlapping by k-1 (k-mer set
+    preserved, each k-mer occurs exactly once). Returns (genome, unitigs
+    as bytes[, cuts])."""
+    from finito_tpu_torch.io.seqdb import decode_seq
+    from finito_tpu_torch.sbwt import keys as kw
+
+    while True:
+        genome = rng.integers(0, 4, size=genome_len, dtype=np.uint8)
+        # k-mer distinctness (astronomically likely for k=31): native
+        # rolling pack + radix sort, one pass each
+        wk = kw.sort_keys(kw.pack_windows(genome, k))
+        if not np.any(kw.eq_adjacent(wk)):
+            break
+    del wk
+    cuts = draw_cuts(rng, genome_len, k, mean_unitig)
+    unitigs = [decode_seq(genome[a : b + k - 1]) for a, b in zip(cuts[:-1], cuts[1:])]
+    if return_cuts:
+        return genome, unitigs, cuts
+    return genome, unitigs
 
 
 def gen_repeat_genome(

@@ -14,12 +14,13 @@ from finito_tpu_torch.index.builder import FinimizerIndexBuilder
 from finito_tpu_torch.io.seqdb import SeqDB, decode_seq
 from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
 from finito_tpu_torch.sbwt.lcs import lcs_array
+from finito_tpu_torch.utils import synth
 
 
 @pytest.mark.parametrize("k", [31, 63])
 def test_analytic_expected_equals_host_oracle(k):
     rng = np.random.default_rng(k)
-    genome, unitigs, cuts = chip_smoke.gen_dspss(rng, 6000, k, mean_unitig=300)
+    genome, unitigs, cuts = synth.gen_dspss(rng, 6000, k, mean_unitig=300, return_cuts=True)
     sb = build_plain_matrix_sbwt(unitigs, k)
     index = FinimizerIndexBuilder(sb, lcs_array(sb), SeqDB.from_sequences(unitigs),
                                   device="cpu").get_index()
@@ -39,11 +40,13 @@ def test_analytic_expected_equals_host_oracle(k):
 
 
 def test_repeat_cell_parameters_equal_bench():
-    """chip_smoke.py keeps its own copy of bench.py's REPEAT_PARAMS (it
-    imports nothing of bench); the copy must not drift."""
+    """chip_smoke.py's repeat cell takes the port's copy of bench.py's
+    REPEAT_PARAMS (it imports nothing of bench); the copy must not
+    drift."""
     from bench import REPEAT_PARAMS
 
-    assert chip_smoke.REPEAT_PARAMS == REPEAT_PARAMS
+    assert chip_smoke.REPEAT_LEN == 4_000_000
+    assert synth.REPEAT_PARAMS == REPEAT_PARAMS
 
 
 def test_sample_reads_follows_bench():

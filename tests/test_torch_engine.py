@@ -101,6 +101,35 @@ def test_search_fwd_rc_and_locate_batch(fixture):
     assert uid.dtype == np.int32
 
 
+@pytest.mark.parametrize("k0", [None, "1"])
+def test_locate_batch_async_and_reads_arrays_equal_jax(fixture, monkeypatch, k0):
+    """locate_batch_async returns device tensors whose (B, W) slice equals
+    JAX's locate_batch_async and the port's locate_batch, also when a
+    forced tiny capacity (FINITO_MIN_K0) makes its check re-run;
+    locate_reads_arrays equals JAX's read for read (None for short and
+    N-containing reads)."""
+    index, _, reads, k, jindex = fixture
+    engine, jengine = DeviceQueryEngine(index, device="cpu"), JaxEngine(jindex, mode="minimizer")
+    _, _, both = engine._encode_both_strands(reads)
+    if k0:
+        monkeypatch.setenv("FINITO_MIN_K0", k0)
+    uid, off, B, W = engine.locate_batch_async(both)
+    assert isinstance(uid, torch.Tensor) and isinstance(off, torch.Tensor)
+    juid, joff, jB, jW = jengine.locate_batch_async(both)
+    assert (B, W) == (jB, jW) == (both.shape[0], both.shape[1] - k + 1)
+    np.testing.assert_array_equal(uid[:B, :W].numpy(), np.asarray(juid)[:B, :W])
+    np.testing.assert_array_equal(off[:B, :W].numpy(), np.asarray(joff)[:B, :W])
+    lb = engine.locate_batch(both)
+    np.testing.assert_array_equal(lb[0], uid[:B, :W].numpy())
+    got, want = engine.locate_reads_arrays(reads), jengine.locate_reads_arrays(reads)
+    assert len(got) == len(want) == len(reads)
+    for g, w, read in zip(got, want, reads):
+        assert (g is None) == (w is None) == (len(read) < k or b"N" in read.upper()), read
+        if g is not None:
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_deferred_verify_overflow_rerun(fixture, monkeypatch):
     """A forced tiny slow-path capacity (FINITO_MIN_K0) must be caught by
     the deferred verify in _end and re-run to the exact answer."""

@@ -6,7 +6,9 @@ finito_tpu_torch.cli`` on the CPU, each command with exit code 0
 unitigs --mesh 2 and the mesh index build on 2 CPU shards, byte-identical
 to the host builds); then the repeat-dense workload, the device-resident
 pipeline of every engine mode and the in-scan replica twin, against the
-index-free oracle. The cross-process mesh's workers
+index-free oracle; then the entry step, tools.micro and
+tools.genome_scale_verify at tiny sizes (every tools module and the
+entry module import). The cross-process mesh's workers
 (tests/test_torch_xproc.py: 2 processes in a gloo group, every locate,
 build and LCS case) run with the same modules blocked."""
 
@@ -38,6 +40,9 @@ BLOCKED = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     print("imported", len(names), "modules")
+    tools = {"cache", "build_cache", "micro", "h_sweep", "lane_sweep", "genome_scale_verify",
+             "pangenome_verify"}
+    assert {"finito_tpu_torch.entry"} | {"finito_tpu_torch.tools." + t for t in tools} <= set(names)
 
     tmp, = sys.argv[1:]
 
@@ -118,6 +123,22 @@ BLOCKED = textwrap.dedent("""
         assert np.array_equal(out[0].numpy(), want[0]) and np.array_equal(out[1].numpy(), want[1])
     twin = make_replica_locate(rindex, device="cpu")(rreads)
     assert np.array_equal(twin[0].numpy(), want[0]) and np.array_equal(twin[1].numpy(), want[1])
+    # the tooling and the entry step, at tiny sizes
+    import contextlib
+    import io
+
+    from finito_tpu_torch.entry import entry
+    from finito_tpu_torch.tools import genome_scale_verify, micro
+
+    fn, ex = entry(device="cpu")
+    assert (fn(*ex)[0] >= 0).any()
+    rows = micro.run(torch.device("cpu"), 10, b_log2=8, lanes_log2=(6,), steps=40, reps=1,
+                     trials=1)
+    assert rows[-1]["metric"] == "chain_scan_us_per_step_0k_lanes"
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert genome_scale_verify.main(["--genome", "300000", "--tp", "4", "--reads", "16",
+                                         "--device", "cpu"]) == 0
+    assert '"ok": true' in out.getvalue()
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
     assert not foreign, foreign
     print("ISOLATED OK")

@@ -161,3 +161,47 @@ def test_chain_stream_ranks_equal_jax_and_fixed(fixture, chunk):
     fixed = pbv.kmer_ranks_fixed(pbv.DeviceSBWT.from_host(index.sbwt, device="cpu"), reads_t, k)
     _equal(got, fixed)
     _equal(fixed, jbv.kmer_ranks_fixed(jbv.DeviceSBWT.from_host(index.sbwt), jnp.asarray(reads), k))
+
+
+@pytest.mark.parametrize("lanes", [5, 16])
+def test_chain_scan_equals_jax(fixture, lanes):
+    """make_chain_scan (the exact hybrid chain without repair) on the
+    fixture's real index and mutation-heavy reads, at 2 lane counts."""
+    k, n8, n_nodes, reads, tables, _ = fixture
+    reads = reads[:lanes]
+    names = ("tab", "C", "ck", "edge")
+    want = jax.jit(jst.make_chain_scan(n8, k, n_nodes))(*_j(tables, *names), jnp.asarray(reads))
+    got = pst.make_chain_scan(n8, k, n_nodes)(*_p(tables, *names), torch.from_numpy(reads))
+    assert got.dtype == torch.int32
+    _equal(got, want)
+    g = got.numpy()[:, k - 1 :]
+    assert (g >= 0).any() and (g == -1).any() and (g == pst.UNKNOWN).any()
+
+
+@pytest.mark.parametrize("k", [4, 31])
+@pytest.mark.parametrize("lanes", [64, 256])
+def test_chain_scan_on_micro_tables_equals_jax(lanes, k):
+    """make_chain_scan on tools.micro's synthetic index (bench_micro's
+    random rank rows, trimmed to a valid SBWT, and its dense random edge
+    table) over 64 steps, at 2 lane counts. At k = 31, micro's k, a
+    random interval empties long before a window closes, so every lane
+    stays immature; at k = 4 the lanes close and follow the edges."""
+    from finito_tpu_torch.tools.micro import synthetic_sbwt_bits
+
+    rng = np.random.default_rng(lanes)
+    n = 1 << 12
+    bits = synthetic_sbwt_bits(rng, n)
+    assert 1 + int(bits.sum()) <= n
+    tables = {"tab": jr24.build_rank24_tables(bits),
+              "C": np.cumsum([1, *bits.sum(axis=1)[:3]]).astype(np.int32),
+              "ck": np.stack([np.zeros(n, np.int32), np.full(n, n - 1, np.int32)], axis=1),
+              "edge": rng.integers(0, n, size=4 * n, dtype=np.int32)}
+    codes = rng.integers(0, 4, size=(lanes, 64), dtype=np.uint8)
+    codes[rng.integers(0, lanes, 8), rng.integers(0, 64, 8)] = 255
+    n8 = tables["tab"].shape[0] // 4
+    names = ("tab", "C", "ck", "edge")
+    want = jax.jit(jst.make_chain_scan(n8, k, n))(*_j(tables, *names), jnp.asarray(codes))
+    got = pst.make_chain_scan(n8, k, n)(*_p(tables, *names), torch.from_numpy(codes))
+    _equal(got, want)
+    found = (got.numpy()[:, k - 1 :] >= 0).mean()
+    assert found > 0.5 if k == 4 else found == 0
