@@ -107,7 +107,9 @@ Phases, one line or more each:
      default shape (2 Mbp base, 20 variants, k=63, tp=8), each ok;
      tools.build_cache at 4,641,652 bp, then tools.h_sweep on it (h 23
      and 25, v1 and v2); tools.lane_sweep at 400 kbp, B 8192, chunks 0
-     and auto. The front-end kernel is held bit for bit to its plain
+     and auto; tools.bench (bench.py's ladder: the 400 kbp head, the
+     cached 4,641,652 bp rung, stream, replica and a 1 Mbp repeat row,
+     every window of each against its oracle). The front-end kernel is held bit for bit to its plain
      version on every input these runs gave it (k=63 included).
 
 Prints the kernels' JSON line (launches in total and per main-path run),
@@ -196,6 +198,9 @@ TOOLS_HS = "23,25"
 TOOLS_PANGENOME_ARGS = ["--mesh-build"]  # at its default shape: 2 Mbp base, 20 variants, k=63, tp=8
 TOOLS_LANE_GENOME = 400_000
 TOOLS_LANE_BATCH = 8192
+TOOLS_BENCH_GENOME = 400_000  # the ladder's head; auto adds the cached TOOLS_CACHE_GENOME
+TOOLS_BENCH_EXTRA = ("stream", "replica", "repeat")
+TOOLS_BENCH_REPEAT = 1_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 
@@ -2154,18 +2159,49 @@ def tool_main(name: str, module, argv):
     return (json.loads(lines[-1]) if lines else None), out, wall, launches
 
 
+def bench_args(cache: str) -> list:
+    """tools.bench's arguments in phase 6: the 400 kbp head, --ladder auto
+    over the cache build_cache filled (so the cached TOOLS_CACHE_GENOME
+    rung runs too), the stream, replica and repeat extra rows, no
+    watchdog (main runs in this process) and no --profile (a process
+    that has profiled before drops device events)."""
+    return ["--device", TOOLS_DEVICE, "--genome", str(TOOLS_BENCH_GENOME), "--ladder", "auto",
+            "--cache-dir", cache, "--extra-rows", ",".join(TOOLS_BENCH_EXTRA),
+            "--repeat-genome", str(TOOLS_BENCH_REPEAT), "--reps", "5", "--trials", "1",
+            "--stall-timeout", "0"]
+
+
+def check_ladder(res: dict, sizes: list) -> None:
+    """tools.bench's line: no error, one row a rung and extra row, and
+    every window of each k <= 32 row against its oracle."""
+    if res is None or "error" in res:
+        raise AssertionError(f"tools.bench: {res}")
+    rows = res["ladder"]
+    want = [(g, "uniform") for g in sizes] + [
+        (TOOLS_BENCH_REPEAT if e == "repeat" else TOOLS_BENCH_GENOME,
+         "repeat" if e == "repeat" else "uniform") for e in sorted(TOOLS_BENCH_EXTRA)]
+    got = [(r.get("genome"), r.get("workload")) for r in rows]
+    if sorted(got) != sorted(want) or any("error" in r for r in rows):
+        raise AssertionError(f"tools.bench rows {got} (want {want}): {rows}")
+    for r in rows:
+        if r["k"] <= 32 and r["analytic_verified_windows"] != PIPE_BATCH * (READ_LEN - r["k"] + 1):
+            raise AssertionError(f"tools.bench: not every window verified in {r}")
+
+
 def tools_phase(work: str) -> dict:
     """Phase 6: the port's tooling and entry points on cuda:0, each
     through its own entry point under tool_run, one JSON line each:
     micro at its default sizes and at n = 2^26; entry()'s step against
     the plain path (the same step on the CPU); dryrun_multichip on 8 x
     cuda:0; genome_scale_verify and pangenome_verify --mesh-build (ok
-    required); build_cache, then h_sweep on its entry; lane_sweep.
+    required); build_cache, then h_sweep on its entry; lane_sweep; the
+    ladder (tools.bench) with that entry as its second rung.
     Returns the front-end launches of each."""
     import torch
 
     from finito_tpu_torch.entry import dryrun_multichip, entry
     from finito_tpu_torch.tools import (
+        bench,
         build_cache,
         genome_scale_verify,
         h_sweep,
@@ -2226,6 +2262,9 @@ def tools_phase(work: str) -> dict:
                                    "--device", TOOLS_DEVICE])
     log(json.dumps({"tool": "lane_sweep", "wall_s": wall, "launches": launches["lane_sweep"],
                     **art}))
+    res, _, wall, launches["bench"] = tool_main("tools.bench", bench, bench_args(cache))
+    check_ladder(res, [TOOLS_BENCH_GENOME, TOOLS_CACHE_GENOME])
+    log(json.dumps({"tool": "bench", "wall_s": wall, "launches": launches["bench"], **res}))
     log(f"tools phase wall: {time.perf_counter() - t_phase} s")
     return launches
 

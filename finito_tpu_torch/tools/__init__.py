@@ -1,11 +1,12 @@
 """The port's tooling: twins of the JAX package's scripts, bench_micro.py
-and bench.py's data helpers, each run as ``python -m
+and bench.py's ladder and data helpers, each run as ``python -m
 finito_tpu_torch.tools.<name>`` and each importing nothing of the JAX
 package.
 
   cache                the DSPSS / repeat index cache (load_or_build_index)
   build_cache          builds a cache entry: index, genome, .ftmidx
   micro                gather, interval-extension and chain-scan rates
+  bench                bench.py's ladder: the pipeline's qps per rung, verified
   h_sweep              the minimizer slot-table size (h) against qps
   lane_sweep           the stream and replica pipelines over B x chunk
   genome_scale_verify  a shard-local k=63 index of a genome-scale DSPSS

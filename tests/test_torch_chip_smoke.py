@@ -64,3 +64,42 @@ def test_sample_reads_follows_bench():
     want[a, b] = (want[a, b] + rng.integers(1, 4, size=n_mut)) % 4
     assert np.array_equal(starts, s) and np.array_equal(reads, want)
     assert np.array_equal(mi, a) and np.array_equal(mj, b)
+
+
+def test_bench_phase_arguments_parse():
+    """Phase 6's tools.bench arguments parse as the tool's own flags, ask
+    for the card, no watchdog and no profile, and check_ladder takes the
+    rows they give: the head, the cached rung and each extra row."""
+    from finito_tpu_torch.tools import bench as pbench
+
+    argv = chip_smoke.bench_args("/cache")
+    seen = {}
+    real = pbench.argparse.ArgumentParser.parse_args
+
+    def spy(self, args=None, namespace=None):
+        seen["args"] = real(self, args, namespace)
+        raise SystemExit(0)
+
+    pbench.argparse.ArgumentParser.parse_args = spy
+    try:
+        with pytest.raises(SystemExit):
+            pbench.main(argv)
+    finally:
+        pbench.argparse.ArgumentParser.parse_args = real
+    a = seen["args"]
+    assert a.device == "cuda:0" and a.ladder == "auto" and a.cache_dir == "/cache"
+    assert a.stall_timeout == 0 and a.profile is None and a.genome == 400_000
+    assert set(a.extra_rows.split(",")) == {"stream", "replica", "repeat"}
+    assert a.repeat_genome == 1_000_000 and a.batch == chip_smoke.PIPE_BATCH
+
+    def row(g, wl, eng="minimizer"):
+        return {"genome": g, "k": 31, "workload": wl, "engine": eng,
+                "analytic_verified_windows": chip_smoke.PIPE_BATCH * 98}
+
+    rows = [row(400_000, "uniform"), row(4_641_652, "uniform"), row(400_000, "uniform", "replica"),
+            row(400_000, "uniform", "stream"), row(1_000_000, "repeat")]
+    chip_smoke.check_ladder({"ladder": rows}, [400_000, 4_641_652])
+    for bad in ({"ladder": rows[:-1]}, {"ladder": rows, "error": "stalled"},
+                {"ladder": rows[:-1] + [{**rows[-1], "analytic_verified_windows": 0}]}):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_ladder(bad, [400_000, 4_641_652])

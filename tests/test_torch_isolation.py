@@ -6,8 +6,9 @@ finito_tpu_torch.cli`` on the CPU, each command with exit code 0
 unitigs --mesh 2 and the mesh index build on 2 CPU shards, byte-identical
 to the host builds); then the repeat-dense workload, the device-resident
 pipeline of every engine mode and the in-scan replica twin, against the
-index-free oracle; then the entry step, tools.micro and
-tools.genome_scale_verify at tiny sizes (every tools module and the
+index-free oracle; then the entry step, tools.micro,
+tools.genome_scale_verify and one tools.bench rung at tiny sizes (every
+tools module and the
 entry module import). The cross-process mesh's workers
 (tests/test_torch_xproc.py: 2 processes in a gloo group, every locate,
 build and LCS case) run with the same modules blocked."""
@@ -41,7 +42,7 @@ BLOCKED = textwrap.dedent("""
         importlib.import_module(name)
     print("imported", len(names), "modules")
     tools = {"cache", "build_cache", "micro", "h_sweep", "lane_sweep", "genome_scale_verify",
-             "pangenome_verify"}
+             "pangenome_verify", "bench"}
     assert {"finito_tpu_torch.entry"} | {"finito_tpu_torch.tools." + t for t in tools} <= set(names)
 
     tmp, = sys.argv[1:]
@@ -139,6 +140,13 @@ BLOCKED = textwrap.dedent("""
         assert genome_scale_verify.main(["--genome", "300000", "--tp", "4", "--reads", "16",
                                          "--device", "cpu"]) == 0
     assert '"ok": true' in out.getvalue()
+    from finito_tpu_torch.tools import bench
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert bench.main(["--device", "cpu", "--genome", "20000", "--ladder", "off",
+                           "--extra-rows", "", "--batch", "16", "--read-len", "64", "--reps", "1",
+                           "--trials", "1", "--cache-dir", tmp + "/bench_cache"]) == 0
+    assert '"ladder": [{"genome": 20000' in out.getvalue()
     foreign = [m for m in sys.modules if m.split(".")[0] in FOREIGN and sys.modules[m] is not None]
     assert not foreign, foreign
     print("ISOLATED OK")
