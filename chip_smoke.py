@@ -88,7 +88,8 @@ Phases, one line or more each:
      j. the device-resident pipeline (DeviceQueryEngine.make_device_pipeline)
         on one batch of 8192 forward reads put on the card once, by
         bench.py run_rung's protocol (pipeline_cell): at 1 Mbp the
-        minimizer engine's v1 and v2 forced, then the builder's device
+        minimizer engine's v1 and v2 forced (the pipeline's size
+        threshold set to 0), then the builder's device
         fallback (FinimizerIndexBuilder without node keys on the card:
         files byte-identical to build-fmin's); at 4,641,652 bp the
         minimizer (v2), dense, stream and replica engines (the last
@@ -871,7 +872,24 @@ def front_recorded():
         minimizer_engine.minimizer_windows = minimizer_windows
 
 
-def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index) -> tuple:
+@contextlib.contextmanager
+def pipeline_v2_forced():
+    """make_device_pipeline builds the v2 locate at its own capacities
+    whatever the descriptor's size while the block runs: its size
+    threshold (V2_MIN_DESC_BYTES) is 0. The pipeline, as JAX's, takes no
+    variable for it."""
+    from finito_tpu_torch.query import engine
+
+    threshold = engine.V2_MIN_DESC_BYTES
+    engine.V2_MIN_DESC_BYTES = 0
+    try:
+        yield
+    finally:
+        engine.V2_MIN_DESC_BYTES = threshold
+
+
+def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index,
+                  forced: bool = False) -> tuple:
     """bench.py run_rung's protocol (bench.py:236-368) on the port's
     device-resident step, eng.make_device_pipeline, for one built
     engine: unknown_frac 0.02 (stream, replica) or 0.10; one call, then
@@ -885,23 +903,25 @@ def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index
     (the minimum kept); one call under torch.profiler. The front-end
     kernel's launches are counted from 0 over the whole protocol and held
     bit for bit to the plain version on every input. One JSON line.
+    forced: the minimizer pipeline in the v2 form (pipeline_v2_forced).
     Returns (the launches, the checked call's (uid, off) on the card)."""
     import torch
 
     from finito_tpu_torch.io.seqdb import decode_seq
     from finito_tpu_torch.ops import streaming
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
-    from finito_tpu_torch.query.engine import pick_v2
+    from finito_tpu_torch.query.engine import v2_by_size
 
     mode = eng.mode
     B, L = reads_dev.shape
     W = L - K + 1
-    form = ("v2" if pick_v2(eng._dmi) else "v1") if mode == "minimizer" else None
-    forced = os.environ.get("FINITO_MINIMIZER_V2") == "1" and mode == "minimizer"
+    form = (("v2" if forced or v2_by_size(eng._dmi) else "v1") if mode == "minimizer"
+            else None)
     what = (f"pipeline {mode}{' ' + form if form else ''}{' (forced)' if forced else ''} "
             f"{info['cell']}")
     frac0 = frac = 0.02 if mode in ("stream", "replica") else 0.10
-    with front_recorded() as seen:
+    with front_recorded() as seen, (pipeline_v2_forced() if forced
+                                    else contextlib.nullcontext()):
         pipe = eng.make_device_pipeline(B, L, unknown_frac=frac)
         out = pipe(reads_dev)
         n, K0 = int(out[2]), pipe.K
@@ -2088,11 +2108,7 @@ def index_phase(genome_len: int, seed: int, n_reads: int, work: str) -> tuple:
     n, _ = pipeline_cell(eng, pinfo, p_reads, p_dev, p_want, index)
     launches[f"pipeline minimizer {'v2' if eng.use_v2 else 'v1'} {genome_len} bp"] = n
     if not eng.use_v2:  # the 1 Mbp cell: v2 forced on the same engine
-        os.environ["FINITO_MINIMIZER_V2"] = "1"
-        try:
-            n, _ = pipeline_cell(eng, pinfo, p_reads, p_dev, p_want, index)
-        finally:
-            del os.environ["FINITO_MINIMIZER_V2"]
+        n, _ = pipeline_cell(eng, pinfo, p_reads, p_dev, p_want, index, forced=True)
         launches[f"pipeline minimizer v2 (forced) {genome_len} bp"] = n
         builder_fallback_phase(index, prefix, os.path.join(work, "unitigs.fna"), work)
     del eng

@@ -9,7 +9,8 @@ batches there. Modes (search-fmin --engine):
   * "minimizer": the seed-and-verify locate of query.minimizer_engine:
     the per-window v1 form below a 64 MB slot descriptor, the
     run-deduplicated v2 form from there up (the JAX engine's rule;
-    FINITO_MINIMIZER_V2=0/1 forces either);
+    FINITO_MINIMIZER_V2=0/1 forces either, except in make_device_pipeline,
+    which, as JAX's, goes by size alone);
   * "dense": a per-colex (unitig, offset) row table built at init by
     searching every unitig window (build_position_table), then per
     batch k fixed extension steps over all windows and one row gather;
@@ -57,13 +58,19 @@ MODES = ("minimizer", "dense", "stream", "replica")
 V2_MIN_DESC_BYTES = 64 << 20
 
 
+def v2_by_size(dmi: DeviceMinimizerIndex) -> bool:
+    """v2 from a V2_MIN_DESC_BYTES descriptor up: make_device_pipeline's
+    rule, as in the JAX engine; no variable overrides it."""
+    return dmi.desc.numel() * dmi.desc.element_size() >= V2_MIN_DESC_BYTES
+
+
 def pick_v2(dmi: DeviceMinimizerIndex) -> bool:
-    """Whether the locate takes the v2 form: FINITO_MINIMIZER_V2=0/1
-    forces it, else v2 from a V2_MIN_DESC_BYTES descriptor up."""
+    """Whether the engine's and kmer-mapper's locate takes the v2 form:
+    FINITO_MINIMIZER_V2=0/1 forces it, else v2_by_size."""
     forced = os.environ.get("FINITO_MINIMIZER_V2")
     if forced in ("0", "1"):
         return forced == "1"
-    return dmi.desc.numel() * dmi.desc.element_size() >= V2_MIN_DESC_BYTES
+    return v2_by_size(dmi)
 
 
 def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
@@ -456,7 +463,8 @@ class DeviceQueryEngine:
         pipe.K (and n_heads <= pipe.K_heads when that is set); the caller
         re-sizes through unknown_frac. JAX's capacities, W = read_len - k + 1:
           minimizer: K = max(256, B*W*frac) slow windows (v1) or slow runs
-            (v2, as pick_v2 decides), K_heads = max(1024, B*W*2.8/(k-m+2))
+            (v2, as v2_by_size decides: FINITO_MINIMIZER_V2 is the
+            engine's, not the pipeline's), K_heads = max(1024, B*W*2.8/(k-m+2))
             run heads in v2, None in v1;
           dense: n_unknown is 0 and K = B*W;
           stream, replica: K = max(1024, B*W*frac) repair segments.
@@ -470,7 +478,7 @@ class DeviceQueryEngine:
         K_heads = None
         if self.mode == "minimizer":
             K = max(256, int(BW * unknown_frac))
-            if pick_v2(self._dmi):
+            if v2_by_size(self._dmi):
                 K_heads = max(1024, int(BW * (2.8 / (self.k - self._dmi.m + 2))))
                 pipe = make_minimizer_locate_v2(self._dmi, K, K_heads)
             else:

@@ -1,8 +1,9 @@
 """The port's ladder, finito_tpu_torch/tools/bench.py, on the CPU against
 bench.py: run_rung in-process against JAX's bench.run_rung for the same
 arguments and rng(0), every row field but the times exactly equal, for
-the minimizer engine (v1, and v2 forced in both packages), dense, stream
-and the repeat workload; _emit's line against JAX's, with and without
+the minimizer engine (v1, also with FINITO_MINIMIZER_V2=1 set, and v2
+forced in both packages), dense, stream and the repeat workload; _emit's
+line against JAX's, with and without
 an error; main's ladder choices (auto over a cache built by
 tools.build_cache, off, an explicit list), its extra rows, its rung
 isolation and its k63 skip; the stall watchdog in a subprocess; and the
@@ -45,24 +46,43 @@ def _args(engine="minimizer", k=31, **kw):
 
 # replica is left out: JAX's replica pipeline does not finish compiling on
 # the CPU within the test's time (its row is run by the port in test_main_*)
-@pytest.mark.parametrize("engine,workload,v2", [
+@pytest.mark.parametrize("engine,workload,v2_env", [
     ("minimizer", "uniform", False), ("minimizer", "uniform", True), ("dense", "uniform", False),
     ("stream", "uniform", False), ("minimizer", "repeat", False)])
-def test_run_rung_equals_jax(engine, workload, v2, monkeypatch):
-    if v2:
-        # the port's pipeline takes FINITO_MINIMIZER_V2; JAX's picks v2 by
-        # descriptor size alone, so its v1 factory is made to build v2 at
-        # the pipeline's head capacity for B = 32, W = 34
-        from finito_tpu.query import minimizer_engine as jme
-
+def test_run_rung_equals_jax(engine, workload, v2_env, monkeypatch):
+    if v2_env:
+        # both pipelines pick their form by descriptor size alone: the
+        # variable, set for both, changes neither row
         monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
-        monkeypatch.setattr(jme, "make_minimizer_locate", lambda dmi, K: jme.make_minimizer_locate_v2(
-            dmi, K, max(1024, int(32 * 34 * (2.8 / (31 - dmi.m + 2))))))
     want = bench.run_rung(GENOME, _args(engine), np.random.default_rng(0), workload=workload,
                           engine_mode=engine)
     got = pbench.run_rung(GENOME, _args(engine, device="cpu"), np.random.default_rng(0),
                           workload=workload, engine_mode=engine)
     assert set(got) == set(want) == ROW_FIELDS
+    for key in ROW_FIELDS - TIMINGS:
+        assert got[key] == want[key], key
+    assert got["verified_windows"] > got["oracle_verified_reads"]
+
+
+def test_run_rung_v2_forced_equals_jax(monkeypatch):
+    """The minimizer row in the v2 form, forced in both packages at the
+    pipeline's capacities: the port's size threshold at 0, JAX's v1
+    factory pointed at make_minimizer_locate_v2 with the pipeline's head
+    capacity for B = 32, W = 34 (the port's v2 factory is seen to run).
+    Every field but the times equal."""
+    from finito_tpu.query import minimizer_engine as jme
+    from finito_tpu_torch.query import engine as port_engine
+
+    monkeypatch.setattr(port_engine, "V2_MIN_DESC_BYTES", 0)
+    built = []
+    v2_factory = port_engine.make_minimizer_locate_v2
+    monkeypatch.setattr(port_engine, "make_minimizer_locate_v2",
+                        lambda *a: built.append(a[2]) or v2_factory(*a))
+    monkeypatch.setattr(jme, "make_minimizer_locate", lambda dmi, K: jme.make_minimizer_locate_v2(
+        dmi, K, max(1024, int(32 * 34 * (2.8 / (31 - dmi.m + 2))))))
+    want = bench.run_rung(GENOME, _args(), np.random.default_rng(0))
+    got = pbench.run_rung(GENOME, _args(device="cpu"), np.random.default_rng(0))
+    assert built  # the port ran its v2 locate
     for key in ROW_FIELDS - TIMINGS:
         assert got[key] == want[key], key
     assert got["verified_windows"] > got["oracle_verified_reads"]

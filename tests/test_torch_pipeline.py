@@ -3,8 +3,10 @@
 against the JAX engine's make_device_pipeline: for every mode, on a small
 k = 6 index and on a 120 kbp repeat-dense k = 21 index, the same (uid,
 off, count) for the same (batch, read_len, unknown_frac), with the same
-capacities K and K_heads; the v2 form (FINITO_MINIMIZER_V2=1) against
-JAX's make_minimizer_locate_v2 at the pipeline's capacities; an
+capacities K and K_heads; the v1/v2 rule by descriptor size alone, as
+JAX's (FINITO_MINIMIZER_V2 is the engine's variable); the v2 form
+(forced by a zero size threshold) against JAX's
+make_minimizer_locate_v2 at the pipeline's capacities; an
 undersized K reported by count > K as in JAX; every window of the repeat
 batch equal to the index-free oracle. The port reads the other package's
 index files with its own loader. Every comparison is exact."""
@@ -22,6 +24,7 @@ from finito_tpu.io.seqdb import encode_seq
 from finito_tpu.query import minimizer_engine as jme
 from finito_tpu.query.engine import DeviceQueryEngine as JaxEngine
 from finito_tpu_torch.index.index import FinimizerIndex as PortIndex
+from finito_tpu_torch.query import engine as port_engine
 from finito_tpu_torch.query.engine import DeviceQueryEngine
 
 # plain module names: pytest puts tests/ on sys.path, and a `tests` package
@@ -115,15 +118,37 @@ def test_pipeline_equals_jax(cell, mode):
         assert np.array_equal(got[0].numpy(), uid) and np.array_equal(got[1].numpy(), off)
 
 
+def _force_v2(monkeypatch):
+    """The pipeline picks v2 by descriptor size alone (FINITO_MINIMIZER_V2
+    is not its variable, as it is not JAX's): a zero threshold forces it."""
+    monkeypatch.setattr(port_engine, "V2_MIN_DESC_BYTES", 0)
+
+
+@pytest.mark.parametrize("v2", ["0", "1"])
+def test_pipeline_ignores_minimizer_v2_variable(cell, monkeypatch, v2):
+    """FINITO_MINIMIZER_V2 forces the engine's locate form, not the
+    pipeline's: in both packages the pipeline stays v1 on this small
+    index, with equal output, while the port's engine takes the form the
+    variable names."""
+    monkeypatch.setenv("FINITO_MINIMIZER_V2", v2)
+    B, L = cell.reads.shape
+    jeng, peng = cell.engines("minimizer")
+    pipe = peng.make_device_pipeline(B, L, unknown_frac=0.1)
+    want_pipe = jeng.make_device_pipeline(B, L, unknown_frac=0.1)
+    assert pipe.K_heads is None and want_pipe.K_heads is None
+    _equal_outputs(pipe(torch.from_numpy(cell.reads)), want_pipe(cell.reads))
+    assert DeviceQueryEngine(cell.pindex, device="cpu").use_v2 == (v2 == "1")
+
+
 def test_forced_v2_equals_jax_locate_v2(cell, monkeypatch):
-    """FINITO_MINIMIZER_V2=1: the v2 form with JAX's pipeline capacities,
-    equal to JAX's make_minimizer_locate_v2 at those capacities and to
-    the v1 pipeline's windows."""
+    """The v2 form forced (a zero size threshold) with JAX's pipeline
+    capacities, equal to JAX's make_minimizer_locate_v2 at those
+    capacities and to the v1 pipeline's windows."""
     jeng, peng = cell.engines("minimizer")
     B, L = cell.reads.shape
     v1 = peng.make_device_pipeline(B, L, unknown_frac=0.1)
     assert v1.K_heads is None
-    monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
+    _force_v2(monkeypatch)
     pipe = peng.make_device_pipeline(B, L, unknown_frac=0.1)
     BW = B * (L - cell.k + 1)
     assert pipe.K == max(256, int(BW * 0.1))
@@ -141,7 +166,7 @@ def test_undersized_capacity_reported(cell, monkeypatch, mode):
     """unknown_frac 0 gives the smallest K: where the batch needs more,
     the count exceeds K, the same count as JAX's."""
     if mode == "minimizer v2":
-        monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
+        _force_v2(monkeypatch)
     jeng, peng = cell.engines(mode.split()[0])
     if cell.genome is None:
         reads = np.concatenate([cell.reads] * 64)
@@ -186,7 +211,7 @@ def test_pipeline_on_card_equals_cpu(cell, monkeypatch, mode):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     if mode == "minimizer v2":
-        monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
+        _force_v2(monkeypatch)
     mode = mode.split()[0]
     B, L = cell.reads.shape
     codes = torch.from_numpy(cell.reads)
