@@ -694,13 +694,11 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
 
     codes = eng._to_device(_pad_codes(codes_both))
     B, L = codes.shape
-    reads = {"verify": 0}
 
     def locate():
         uid, off, verify = eng._locate_async(codes)
         if verify is None:
             return uid, off
-        reads["verify"] += 1
         if verify() is not None:
             raise AssertionError("the segment capacity overflowed at the memo's K")
         return uid, off
@@ -708,11 +706,11 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
     verify = eng._locate_async(codes)[2]
     if verify is not None:
         verify()  # settles K for this shape (the CLI run's chunks already did)
-    r0 = streaming.straggler_pending.reads
+    r0, s0 = host_reads(), host_reads("straggler")
     locate()
     torch.cuda.synchronize()
-    res = {"B": B, "L": L, "host_reads": reads["verify"] + streaming.straggler_pending.reads - r0,
-           "straggler_reads": streaming.straggler_pending.reads - r0}
+    res = {"B": B, "L": L, "host_reads": host_reads() - r0,
+           "straggler_reads": host_reads("straggler") - s0}
     if eng.mode != "dense":
         K = eng._sizes[(B, L)]
         res.update(K=K, n_seg=int(eng._segment_locate(K)(codes)[2]))
@@ -802,6 +800,14 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
            "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak, "batch": batch}
     log(json.dumps(row))
     return eng, build_s
+
+
+def host_reads(site: str = "") -> int:
+    """utils.trace's count of device-to-host reads so far, at one site or
+    at all of them."""
+    from finito_tpu_torch.utils import trace
+
+    return sum(n for name, n in trace.counts.items() if name.startswith("host_reads." + site))
 
 
 def host_syncs(fn) -> int:
@@ -908,7 +914,6 @@ def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index
     import torch
 
     from finito_tpu_torch.io.seqdb import decode_seq
-    from finito_tpu_torch.ops import streaming
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
     from finito_tpu_torch.query.engine import v2_by_size
 
@@ -943,12 +948,12 @@ def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index
             want = index.search(decode_seq(reads[b])).local_offsets
             if list(zip(uid[b].tolist(), off[b].tolist())) != want:
                 raise AssertionError(f"{what}: read {b} disagrees with FinimizerIndex.search")
-        r0 = streaming.straggler_pending.reads
+        r0 = host_reads("straggler")
         t0 = time.perf_counter()
         syncs = host_syncs(lambda: pipe(reads_dev))
         torch.cuda.synchronize()
         t_call = time.perf_counter() - t0
-        stragglers = streaming.straggler_pending.reads - r0
+        stragglers = host_reads("straggler") - r0
 
         def chained(reps):
             s = torch.zeros((), dtype=torch.int64, device=reads_dev.device)
@@ -1333,16 +1338,13 @@ def mesh_batch(eng, codes_both: np.ndarray) -> dict:
         reruns.append(verify() is not None)
         return uid, off
 
-    def shard_reads():
-        return sum(fn.host_reads for fn in eng._mesh_locates.values())
-
     locate()
     torch.cuda.synchronize()
-    r0, l0 = shard_reads(), minimizer_windows.launches
+    r0, l0 = host_reads(), minimizer_windows.launches
     locate()
     torch.cuda.synchronize()
     # the shards' trip-count reads, and the verify's one read of n_slow
-    res = {"B": B, "L": L, "host_reads": shard_reads() - r0 + 1,
+    res = {"B": B, "L": L, "host_reads": host_reads() - r0,
            "front_end_launches": minimizer_windows.launches - l0,
            "K": K, "n_slow": int(eng._mesh_locate(K)(codes)[2])}
     res["ms"] = [time_cuda(locate, reps=5, warmup=1) for _ in range(2)]
@@ -1920,7 +1922,7 @@ def xproc_worker(argv) -> int:
         np.savez(os.path.join(work, f"xproc_{backend}_{dp}x{tp}_r{pid}.npz"),
                  uid=uid.cpu().numpy(), off=off.cpu().numpy())
         fn = fn_for(K_used)
-        c0, b0, r0 = grid.flat.stats["collectives"], grid.flat.stats["staged_bytes"], fn.host_reads
+        c0, b0, r0 = grid.flat.stats["collectives"], grid.flat.stats["staged_bytes"], host_reads()
         walls = []
         for _ in range(XPROC_STEPS):
             torch.cuda.synchronize()
@@ -1934,7 +1936,7 @@ def xproc_worker(argv) -> int:
             "n_slow": n_slow, "K_slow": K_used, "step_ms": [w * 1e3 for w in walls],
             "collectives_per_step": (grid.flat.stats["collectives"] - c0) / XPROC_STEPS,
             "staged_bytes_per_step": (grid.flat.stats["staged_bytes"] - b0) / XPROC_STEPS,
-            "host_reads_per_step": (fn.host_reads - r0) / XPROC_STEPS,
+            "host_reads_per_step": (host_reads() - r0) / XPROC_STEPS,
             "peak_mib": torch.cuda.max_memory_allocated(card) / 2**20}
         del grid, sh, tables, fns, seen
         torch.cuda.empty_cache()

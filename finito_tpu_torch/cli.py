@@ -463,59 +463,70 @@ def _run_queries_streaming(reader, out, index, stats_filename: str, engine=None)
 
     if engine is not None:
         from finito_tpu_torch import native
+        from finito_tpu_torch.utils import trace
 
         fmt = "(%d,%d)".__mod__
 
-        def emit_batch(handle):
+        def emit_batch(handle, chunk: int):
             nonlocal total_positive, kmers_count, kmers_count_rev, number_of_queries
             line_lens, u, p, kf, kr = engine.merged_pairs_flat_end(handle)
-            total_positive += int(np.count_nonzero(u != -1))
-            kmers_count += kf
-            kmers_count_rev += kr
-            number_of_queries += int(u.size)
-            blob = native.format_pairs(u, p, line_lens)
-            if blob is not None:
-                buf = getattr(out, "buffer", None)
-                if buf is not None:
-                    out.flush()
-                    buf.write(blob)
-                else:
-                    out.write(blob.decode("ascii"))
-                return
-            # Python fallback: per-line join over the flat streams
-            pos = 0
-            for n in line_lens.tolist():
-                out.write(
-                    " ".join(map(fmt, zip(u[pos : pos + n].tolist(),
-                                          p[pos : pos + n].tolist())))
-                    + "\n"
-                )
-                pos += n
+            with trace.span("serve.format", chunk):
+                total_positive += int(np.count_nonzero(u != -1))
+                kmers_count += kf
+                kmers_count_rev += kr
+                number_of_queries += int(u.size)
+                blob = native.format_pairs(u, p, line_lens)
+                if blob is not None:
+                    buf = getattr(out, "buffer", None)
+                    if buf is not None:
+                        out.flush()
+                        buf.write(blob)
+                    else:
+                        out.write(blob.decode("ascii"))
+                    return
+                # Python fallback: per-line join over the flat streams
+                pos = 0
+                for n in line_lens.tolist():
+                    out.write(
+                        " ".join(map(fmt, zip(u[pos : pos + n].tolist(),
+                                              p[pos : pos + n].tolist())))
+                        + "\n"
+                    )
+                    pos += n
 
         # Double-buffered serving loop: dispatch chunk n+1 (async device
         # work) before reading back and formatting chunk n, so the device
         # computes under the host's formatting and output writes.
+        # in_flight: (handle, chunk ordinal) of the chunk dispatched last.
+        trace.reset()
         pending: List[bytes] = []
         in_flight = None
+        n_chunks = 0
+        reading = trace.span("serve.read", n_chunks).open()
         for _h, read in reader:
             pending.append(bytes(read))
             if len(pending) >= CHUNK:
+                reading.close()
                 t0 = cur_time_micros()
                 handle = engine.merged_pairs_flat_begin(pending)
                 if in_flight is not None:
-                    emit_batch(in_flight)
-                in_flight = handle
+                    emit_batch(*in_flight)
+                in_flight = (handle, n_chunks)
+                n_chunks += 1
                 total_micros += cur_time_micros() - t0
                 pending = []
+                reading = trace.span("serve.read", n_chunks).open()
+        reading.close()
         t0 = cur_time_micros()
         if pending:
             handle = engine.merged_pairs_flat_begin(pending)
             if in_flight is not None:
-                emit_batch(in_flight)
-            in_flight = handle
+                emit_batch(*in_flight)
+            in_flight = (handle, n_chunks)
         if in_flight is not None:
-            emit_batch(in_flight)
+            emit_batch(*in_flight)
         total_micros += cur_time_micros() - t0
+        write_log("trace: " + trace.summary(), LogLevel.MINOR)
     else:
         for _h, read in reader:
             t0 = cur_time_micros()

@@ -16,7 +16,9 @@ from the trusted predecessor's post-close slide state where possible,
 and walked once with the reference's exact recovery state machine
 (plateau-jump drops and LCS-widening hops): a fixed number of trips,
 then straggler trips while any lane is still active. Each straggler
-check is one device-to-host read (straggler_pending).
+check is one device-to-host read (straggler_pending; utils.trace counts
+them as host_reads.straggler and the trips as trips.repair_fixed and
+trips.straggler).
 
 Output equals ops.bitvec.kmer_ranks_fixed exactly (tested).
 """
@@ -24,10 +26,10 @@ Output equals ops.bitvec.kmer_ranks_fixed exactly (tested).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from finito_tpu_torch.ops.bits import u32
 from finito_tpu_torch.ops.rank24 import update_interval24
+from finito_tpu_torch.utils import trace
 
 UNKNOWN = -2
 # extra fixed repair trips beyond a segment's k-1 + Q walk, for recovery
@@ -180,7 +182,7 @@ def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):
         x = torch.full_like(lo, -1)
         lastfail = torch.full_like(lo, -(k + 2))
         emits, cands, untr = [], [], []
-        with record_function("chain_opt"):
+        with trace.span("chain_opt"):
             for j in range(L):
                 c = cs[:, j]
                 invalid = c > 3
@@ -220,12 +222,8 @@ def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):
 
 def straggler_pending(active: torch.Tensor) -> bool:
     """Whether any repair lane is still active. Each call is one
-    device-to-host read, counted in straggler_pending.reads."""
-    straggler_pending.reads += 1
-    return bool(active.any())
-
-
-straggler_pending.reads = 0
+    device-to-host read (utils.trace site `straggler`)."""
+    return trace.host_read("straggler", lambda: bool(active.any()))
 
 
 def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None = None,
@@ -371,11 +369,13 @@ def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None
         st = (j0, ks0, lo0, hi0, zero, zero, zero, sv,
               torch.full((K_seg, Q + 1), -1, dtype=torch.int32, device=dev),
               torch.full((K_seg, Q + 1), -1, dtype=torch.int32, device=dev))
-        with record_function("segment_repair.fixed"):
+        with trace.span("segment_repair.fixed"):
             for _ in range(T_c):
                 st = body(st)
-        with record_function("segment_repair.straggler"):
+        trace.count("trips.repair_fixed", T_c)
+        with trace.span("segment_repair.straggler"):
             while straggler_pending(st[7]):
+                trace.count("trips.straggler")
                 st = body(st)
         jf, buf_e, buf_c = st[0], st[8], st[9]
         cols = torch.arange(Q, device=dev)[None, :]

@@ -38,7 +38,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from finito_tpu_torch.ops.bits import popcount32, put_i32, slot32, u32
 from finito_tpu_torch.ops.lcs_device import first_labels, lcs_scatter_indices
@@ -59,6 +58,7 @@ from finito_tpu_torch.query.minimizer_engine import (
     _scatter_drop,
     _word_masks,
 )
+from finito_tpu_torch.utils import trace
 
 
 class Mesh:
@@ -538,9 +538,9 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
     (ops.minimizer_front, the CUDA kernel on the card; dp * tp launches a
     batch), the descriptor and payload gathers and the text compare, then
     the compacted slow path, a Python loop bounded by one host read of
-    the shard's largest slot length (call.host_reads counts them). The
-    shards' front ends and fast paths are all issued before the first
-    read. A process runs only the shards it holds. A present k-mer
+    the shard's largest slot length (utils.trace's host_reads.locate.trips
+    counts them). The shards' front ends and fast paths are all issued
+    before the first read. A process runs only the shards it holds. A present k-mer
     verifies in exactly one shard's text, so one psum of owner
     contributions combines the answers. Any k <= 255."""
     k, m, hbits = sh.k, sh.m, sh.h
@@ -615,16 +615,16 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
 
     def call(codes):
         rows = _dp_rows(mesh, _codes(codes))
-        with record_function("mesh_shards"):
+        with trace.span("mesh_shards"):
             states = {(i, j): shard_fast(tables[i, j], c.to(mesh.devices[i, j]))
                       for i, _, c in rows for j in mesh.local(i)}
             trips = {}
             for key, st in states.items():  # the host reads: one per shard
-                trips[key] = int(st["trips"])
-                call.host_reads += 1
+                trips[key] = trace.host_read("locate.trips", lambda: int(st["trips"]))
+                trace.count("trips.slow", trips[key])
             results = {(i, j): shard_slow(tables[i, j], st, n_occ[j], trips[(i, j)])
                        for (i, j), st in states.items()}
-        with record_function("mesh_combine"):
+        with trace.span("mesh_combine"):
             # owner-shard psum combine (not-found shards contribute 0);
             # local unitig ids globalize with the shard's uid base
             out_dev = mesh.out_device
@@ -643,7 +643,6 @@ def sharded_minimizer_locate_fn(mesh: Mesh, sh: ShardedMinimizerIndex, K_slow: i
             return (_gather_rows(mesh, uid_rows, out_dev), _gather_rows(mesh, off_rows, out_dev),
                     n_slow)
 
-    call.host_reads = 0
     return call
 
 

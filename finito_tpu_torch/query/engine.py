@@ -38,7 +38,6 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from finito_tpu_torch.index.index import FinimizerIndex, QueryResult
 from finito_tpu_torch.index.minimizer import MinimizerIndex
@@ -50,6 +49,7 @@ from finito_tpu_torch.query.minimizer_engine import (
     make_minimizer_locate_v2,
 )
 from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
+from finito_tpu_torch.utils import trace
 
 MODES = ("minimizer", "dense", "stream", "replica")
 
@@ -184,7 +184,7 @@ def build_locate_tables(pos_table: torch.Tensor, ends_dev: torch.Tensor, k: int)
 def _ranks_to_locations(loc_table: torch.Tensor, ranks: torch.Tensor):
     """colex ranks (B, W) -> ((B, W) unitig ids, (B, W) offsets), int32;
     one (n, 2) row gather."""
-    with record_function("ranks_to_locations"):
+    with trace.span("ranks_to_locations"):
         found = ranks >= 0
         rows = loc_table[torch.where(found, ranks, 0)]
         uid, off = rows[..., 0], rows[..., 1]
@@ -194,7 +194,7 @@ def _ranks_to_locations(loc_table: torch.Tensor, ranks: torch.Tensor):
 
 def _locate_dense(dsbwt: DeviceSBWT, loc_table: torch.Tensor, codes: torch.Tensor, k: int):
     """(B, L) codes -> ((B, W) unitig ids, (B, W) offsets); -1 for absent."""
-    with record_function("kmer_ranks_fixed"):
+    with trace.span("kmer_ranks_fixed"):
         ranks = kmer_ranks_fixed(dsbwt, codes, k)
     return _ranks_to_locations(loc_table, ranks)
 
@@ -239,6 +239,8 @@ class DeviceQueryEngine:
         self.device = torch.device(device)
         self.mode = mode
         self.k = index.sbwt.get_k()
+        # the process-wide tally of utils.trace, reset by each search-fmin query file
+        self.trace_ms, self.trace_counts = trace.ms, trace.counts
         self.use_v2 = None
         self.mesh_shape = tuple(mesh) if mesh and int(np.prod(mesh)) > 1 else None
         if self.mesh_shape:
@@ -355,7 +357,7 @@ class DeviceQueryEngine:
 
         def verify(K=K):
             out = first
-            while int(out[2]) > K:
+            while trace.host_read("verify", lambda: int(out[2])) > K:
                 if K >= B * W:
                     raise AssertionError("slow-path overflow at K == B*W")
                 K = min(B * W, K * 4)
@@ -407,9 +409,14 @@ class DeviceQueryEngine:
             out = first
             while True:
                 # one read of both counters (v1 has no head buffer)
-                n_slow, n_heads = torch.stack(out[2:4]).tolist() if self.use_v2 else (int(out[2]), 0)
+                n_slow, n_heads = trace.host_read(
+                    "verify", lambda: torch.stack(out[2:4]).tolist() if self.use_v2
+                    else (int(out[2]), 0))
                 grown = grow_capacities(K, KH, n_slow, n_heads, B * W)
                 if grown is None:
+                    if self.use_v2:
+                        trace.count("slow_runs", n_slow)
+                        trace.count("heads", n_heads)
                     self._sizes[(B, W)] = (K, KH)
                     return None if out is first else (out[0], out[1])
                 K, KH = grown
@@ -444,11 +451,12 @@ class DeviceQueryEngine:
 
         def verify(K=K):
             out = first
-            while int(out[2]) > K:
+            while (n_seg := trace.host_read("verify", lambda: int(out[2]))) > K:
                 if K >= cap:
                     raise AssertionError(f"segment overflow at K == {cap}")
                 K = min(cap, K * 4)
                 out = self._segment_locate(K)(codes)
+            trace.count("segments", n_seg)
             self._sizes[(B, L)] = K
             return None if out is first else (out[0], out[1])
 
@@ -510,8 +518,9 @@ class DeviceQueryEngine:
         and the (B, W) slice applies at readback. verify is None when
         the mode has nothing to check (dense)."""
         B, L = codes.shape
-        padded = _pad_codes(codes, self.mesh_shape[0] if self.mesh_shape else 1)
-        uid, off, verify = self._locate_async(self._to_device(padded))
+        with trace.span("query.locate", trace.dispatching()):
+            padded = _pad_codes(codes, self.mesh_shape[0] if self.mesh_shape else 1)
+            uid, off, verify = self._locate_async(self._to_device(padded))
         return uid, off, B, L - self.k + 1, verify
 
     def locate_batch_async(self, codes: np.ndarray):
@@ -549,20 +558,23 @@ class DeviceQueryEngine:
         from finito_tpu_torch.io.seqdb import encode_seq
 
         k = self.k
+        chunk = trace.dispatching()
         batch_idx: List[int] = []
         batch_codes: List[np.ndarray] = []
-        for i, read in enumerate(reads):
-            codes = encode_seq(read if isinstance(read, bytes) else read.encode())
-            if codes.size >= k and not np.any(codes == 255):
-                batch_idx.append(i)
-                batch_codes.append(codes)
-        if not batch_idx:
-            return batch_idx, batch_codes, None
-        L = max(c.size for c in batch_codes)
-        both = np.full((2 * len(batch_codes), L), 255, dtype=np.uint8)
-        for j, c in enumerate(batch_codes):
-            both[2 * j, : c.size] = c
-            both[2 * j + 1, : c.size] = (3 - c)[::-1]
+        with trace.span("query.encode", chunk):
+            with trace.span("query.encode_seq", chunk):
+                for i, read in enumerate(reads):
+                    codes = encode_seq(read if isinstance(read, bytes) else read.encode())
+                    if codes.size >= k and not np.any(codes == 255):
+                        batch_idx.append(i)
+                        batch_codes.append(codes)
+            if not batch_idx:
+                return batch_idx, batch_codes, None
+            L = max(c.size for c in batch_codes)
+            both = np.full((2 * len(batch_codes), L), 255, dtype=np.uint8)
+            for j, c in enumerate(batch_codes):
+                both[2 * j, : c.size] = c
+                both[2 * j + 1, : c.size] = (3 - c)[::-1]
         return batch_idx, batch_codes, both
 
     def _batch_both_strands(self, reads: Sequence[bytes]):
@@ -602,20 +614,24 @@ class DeviceQueryEngine:
         no capacity check (that waits for _end). Returns an opaque
         handle for merged_pairs_flat_end."""
         k = self.k
+        chunk = trace.new_chunk(len(reads))
         line_lens = np.zeros(len(reads), np.int64)
         batch_idx, batch_codes, both = self._encode_both_strands(reads)
         if both is None:
             return (line_lens, None)
-        lens = np.array([c.size - k + 1 for c in batch_codes], dtype=np.int64)
-        line_lens[np.asarray(batch_idx, dtype=np.int64)] = lens
         uid_d, off_d, _, _, verify = self._locate_batch_deferred(both)
-        B2, Wp = uid_d.shape
-        lens_pad = np.zeros(B2 // 2, np.int32)
-        lens_pad[: len(batch_codes)] = lens
-        lens_d = self._to_device(lens_pad)
-        K = int(min((B2 // 2) * Wp, max(4096, 16 * (B2 // 2))))
-        out = merge_rle(uid_d, off_d, lens_d, K)
-        return (line_lens, (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d))
+        with trace.span("query.merge", chunk):
+            # the window counts wait for the locate's dispatch: the card
+            # starts on it while the host computes them
+            lens = np.array([c.size - k + 1 for c in batch_codes], dtype=np.int64)
+            line_lens[np.asarray(batch_idx, dtype=np.int64)] = lens
+            B2, Wp = uid_d.shape
+            lens_pad = np.zeros(B2 // 2, np.int32)
+            lens_pad[: len(batch_codes)] = lens
+            lens_d = self._to_device(lens_pad)
+            K = int(min((B2 // 2) * Wp, max(4096, 16 * (B2 // 2))))
+            out = merge_rle(uid_d, off_d, lens_d, K)
+        return (line_lens, (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d, chunk))
 
     def merged_pairs_flat_end(self, handle):
         """Readback half: the deferred verify, then an O(runs) transfer
@@ -625,52 +641,62 @@ class DeviceQueryEngine:
         if rest is None:
             z = np.zeros(0, np.int32)
             return line_lens, z, z, 0, 0
-        (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d) = rest
-        fixed = verify() if verify is not None else None
-        if fixed is not None:
-            # capacity overflow: the optimistic locate and the merge
-            # chained on it were invalid; redo both exactly
-            uid_d, off_d = fixed
-            out = merge_rle(uid_d, off_d, lens_d, K)
+        (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d, chunk) = rest
+        with trace.span("query.verify", chunk):
+            fixed = verify() if verify is not None else None
+            if fixed is not None:
+                # capacity overflow: the optimistic locate and the merge
+                # chained on it were invalid; redo both exactly
+                trace.count("capacity_reruns")
+                uid_d, off_d = fixed
+                out = merge_rle(uid_d, off_d, lens_d, K)
         u0d, p0d, p1d, rld, stats = out
-        n_runs, kf, kr = (int(x) for x in stats.cpu().tolist())
+        with trace.span("query.readback", chunk):
+            n_runs, kf, kr = (int(x) for x in trace.host_read("stats", lambda: stats.cpu().tolist()))
+            trace.count("runs", n_runs)
+            if n_runs > K:
+                uid_b = trace.host_read("host_merge", lambda: uid_d.cpu().numpy())
+                off_b = trace.host_read("host_merge", lambda: off_d.cpu().numpy())
+            else:
+                runs = trace.host_read(
+                    "runs", lambda: torch.stack([u0d, p0d, p1d, rld])[:, :n_runs].cpu().numpy())
         if n_runs > K:
-            return self._merged_pairs_host(
-                line_lens, batch_codes, lens, uid_d.cpu().numpy(), off_d.cpu().numpy()
-            )
-        runs = torch.stack([u0d, p0d, p1d, rld])[:, :n_runs].cpu().numpy()
-        u0, p0, p1 = runs[0], runs[1], runs[2]
-        rl = runs[3].astype(np.int64)
-        total = int(rl.sum())
-        starts = np.cumsum(rl) - rl
-        u = np.repeat(u0, rl)
-        step = np.sign(p1.astype(np.int64) - p0)
-        off_in = np.arange(total, dtype=np.int64) - np.repeat(starts, rl)
-        p = np.repeat(p0.astype(np.int64), rl) + np.repeat(step, rl) * off_in
+            return self._merged_pairs_host(line_lens, batch_codes, lens, uid_b, off_b, chunk)
+        with trace.span("query.expand", chunk):
+            u0, p0, p1 = runs[0], runs[1], runs[2]
+            rl = runs[3].astype(np.int64)
+            total = int(rl.sum())
+            starts = np.cumsum(rl) - rl
+            u = np.repeat(u0, rl)
+            step = np.sign(p1.astype(np.int64) - p0)
+            off_in = np.arange(total, dtype=np.int64) - np.repeat(starts, rl)
+            p = np.repeat(p0.astype(np.int64), rl) + np.repeat(step, rl) * off_in
         return line_lens, u.astype(np.int32), p.astype(np.int32), kf, kr
 
-    def _merged_pairs_host(self, line_lens, batch_codes, lens, uid_b, off_b):
+    def _merged_pairs_host(self, line_lens, batch_codes, lens, uid_b, off_b, chunk=None):
         """Full-window host merge: the fallback when runs overflow, and
         the arbiter the device RLE path is tested against."""
-        B = len(batch_codes)
-        total = int(lens.sum())
-        j_of = np.repeat(np.arange(B), lens)
-        w_of = np.arange(total, dtype=np.int64) - np.repeat(
-            np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
-        )
-        uf = uid_b[2 * j_of, w_of]
-        of_ = off_b[2 * j_of, w_of]
-        w_rc = lens[j_of] - 1 - w_of
-        ur = uid_b[2 * j_of + 1, w_rc]
-        orr = off_b[2 * j_of + 1, w_rc]
-        absent = uf == -1
-        u = np.where(absent, ur, uf).astype(np.int32)
-        p = np.where(absent, orr, of_).astype(np.int32)
-        # ur gathered at the mirrored windows is a permutation of the RC
-        # row's valid windows, so counting it counts the RC strand
-        kf = int(np.count_nonzero(uf >= 0))
-        kr = int(np.count_nonzero(ur >= 0))
-        return line_lens, u, p, kf, kr
+        trace.count("host_merges")
+        with trace.span("query.host_merge", chunk):
+            B = len(batch_codes)
+            total = int(lens.sum())
+            j_of = np.repeat(np.arange(B), lens)
+            w_of = np.arange(total, dtype=np.int64) - np.repeat(
+                np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
+            )
+            uf = uid_b[2 * j_of, w_of]
+            of_ = off_b[2 * j_of, w_of]
+            w_rc = lens[j_of] - 1 - w_of
+            ur = uid_b[2 * j_of + 1, w_rc]
+            orr = off_b[2 * j_of + 1, w_rc]
+            absent = uf == -1
+            u = np.where(absent, ur, uf).astype(np.int32)
+            p = np.where(absent, orr, of_).astype(np.int32)
+            # ur gathered at the mirrored windows is a permutation of the RC
+            # row's valid windows, so counting it counts the RC strand
+            kf = int(np.count_nonzero(uf >= 0))
+            kr = int(np.count_nonzero(ur >= 0))
+            return line_lens, u, p, kf, kr
 
     def process_reads(self, reads: Sequence[bytes]) -> List[Tuple[QueryResult, QueryResult]]:
         """Per-read (forward, reverse-complement) QueryResults."""

@@ -39,6 +39,7 @@ from finito_tpu_torch.query.minimizer_tables import (
     desc_to_rows,
     pack_text_words,
 )
+from finito_tpu_torch.utils import trace
 
 # the leaves of the JAX DeviceMinimizerIndex, in its tree_flatten order
 LEAVES = ("desc", "occ_rows", "ends", "text", "text_rows", "slot_rows")
@@ -263,7 +264,9 @@ def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
         off_s = torch.full_like(uid_s, -1)
         cnt_s = torch.zeros_like(uid_s)
         # the one host read of the locate: the scan's trip count
-        for t in range(int(s_len.max())):
+        trips = trace.host_read("locate.trips", lambda: int(s_len.max()))
+        trace.count("trips.slow", trips)
+        for t in range(trips):
             i = s_start + t
             scan = i < s_end
             if not count_occurrences:
@@ -369,129 +372,135 @@ def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: in
         B, L = codes.shape
         W = L - k + 1
         BW = B * W
-        best_v, best_o, bad = minimizer_scan(codes, k, dmi.m)
+        with trace.span("v2.front"):
+            best_v, best_o, bad = minimizer_scan(codes, k, dmi.m)
 
-        # run heads: pm, the in-read position of the minimizer, never
-        # decreases along a read, so one cumsum gives every window its
-        # head ordinal and every head its slot in the head buffers
-        pm = best_o + torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-        head = torch.cat(
-            [torch.ones((B, 1), dtype=torch.bool, device=dev), pm[:, 1:] != pm[:, :-1]], dim=1
-        ).reshape(-1)
-        ord_flat = torch.cumsum(head.to(torch.int32), 0) - 1  # int64
-        n_heads = (ord_flat[-1] + 1).to(torch.int32)
-        # heads past K_heads go to the sink with the non-heads
-        head_pos = _scatter_drop(
-            torch.zeros(K_heads, dtype=torch.int64, device=dev),
-            torch.where(head & (ord_flat < K_heads), ord_flat, K_heads),
-            torch.arange(BW, device=dev),
-        )
+        with trace.span("v2.runs"):
+            # run heads: pm, the in-read position of the minimizer, never
+            # decreases along a read, so one cumsum gives every window its
+            # head ordinal and every head its slot in the head buffers
+            pm = best_o + torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+            head = torch.cat(
+                [torch.ones((B, 1), dtype=torch.bool, device=dev), pm[:, 1:] != pm[:, :-1]], dim=1
+            ).reshape(-1)
+            ord_flat = torch.cumsum(head.to(torch.int32), 0) - 1  # int64
+            n_heads = (ord_flat[-1] + 1).to(torch.int32)
+            # heads past K_heads go to the sink with the non-heads
+            head_pos = _scatter_drop(
+                torch.zeros(K_heads, dtype=torch.int64, device=dev),
+                torch.where(head & (ord_flat < K_heads), ord_flat, K_heads),
+                torch.arange(BW, device=dev),
+            )
 
-        # per-head gathers, the only touches of the big tables. No bad-
-        # masking: badness is per window and can differ inside a run; the
-        # slot is always in range, and ln is zeroed per window below.
-        h_v = best_v.reshape(-1)[head_pos]
-        d = dmi.desc[slot32(h_v) >> (32 - dmi.h)]  # (K_heads, 2)
-        h_start, h_ln = d[:, 0], d[:, 1]  # h_ln: exact slot length
-        row = dmi._occ_rows_safe[torch.where(h_ln == 1, h_start, 0)]
-        o_h_all = best_o.reshape(-1)[head_pos]
+            # per-head gathers, the only touches of the big tables. No bad-
+            # masking: badness is per window and can differ inside a run; the
+            # slot is always in range, and ln is zeroed per window below.
+            h_v = best_v.reshape(-1)[head_pos]
+            d = dmi.desc[slot32(h_v) >> (32 - dmi.h)]  # (K_heads, 2)
+            h_start, h_ln = d[:, 0], d[:, 1]  # h_ln: exact slot length
+            row = dmi._occ_rows_safe[torch.where(h_ln == 1, h_start, 0)]
+            o_h_all = best_o.reshape(-1)[head_pos]
 
-        # packed read words (16 bases a word, least significant first) and
-        # each head's read span: the k + R_run - 1 bases from the head
-        # window's first base, shared by the fast verify and the slow path
-        NL = (L + 15) // 16 + NW_SPAN + 1
-        cp = torch.zeros((B, NL * 16), dtype=torch.int64, device=dev)
-        cp[:, :L] = codes.to(torch.int64) & 3
-        rw = (cp.reshape(B, NL, 16) << (2 * torch.arange(16, device=dev))).sum(2).reshape(-1)
-        hb = head_pos // W
-        hw0 = head_pos - hb * W
-        rbase = hb * NL + (hw0 >> 4)
-        rsh = 2 * (hw0 & 15)
-        rnz = rsh > 0
-        rinv = torch.where(rnz, 32 - rsh, 0)
-        span_read_h = []
-        prev = rw[rbase]
-        for iw in range(NW_SPAN):
-            cur = rw[rbase + iw + 1]
-            span_read_h.append(_funnel(prev, cur, rsh, rnz, rinv))
-            prev = cur
+            # packed read words (16 bases a word, least significant first) and
+            # each head's read span: the k + R_run - 1 bases from the head
+            # window's first base, shared by the fast verify and the slow path
+            NL = (L + 15) // 16 + NW_SPAN + 1
+            cp = torch.zeros((B, NL * 16), dtype=torch.int64, device=dev)
+            cp[:, :L] = codes.to(torch.int64) & 3
+            rw = (cp.reshape(B, NL, 16) << (2 * torch.arange(16, device=dev))).sum(2).reshape(-1)
+            hb = head_pos // W
+            hw0 = head_pos - hb * W
+            rbase = hb * NL + (hw0 >> 4)
+            rsh = 2 * (hw0 & 15)
+            rnz = rsh > 0
+            rinv = torch.where(rnz, 32 - rsh, 0)
+            span_read_h = []
+            prev = rw[rbase]
+            for iw in range(NW_SPAN):
+                cur = rw[rbase + iw + 1]
+                span_read_h.append(_funnel(prev, cur, rsh, rnz, rinv))
+                prev = cur
 
-        # run-level fast verify of the single-occurrence heads
-        g0_h = row[:, 0] - o_h_all
-        off0_h = row[:, 2] - o_h_all
-        cnt_h = _span_mismatches(dmi.text, g0_h, span_read_h, masks)
-        vt_h = (off0_h[:, None] + t_idx >= 0) & (g0_h[:, None] + t_idx + k <= row[:, 3:4])
-        match_h = (h_ln == 1)[:, None] & vt_h & (cnt_h == 0)  # (K_heads, R_run)
-        mb = []  # bitmap words in [0, 2^32): bit t of word t >> 5
-        for wdi in range(NB):
-            ts = slice(32 * wdi, min(32 * (wdi + 1), R_run))
-            sh = torch.arange(ts.stop - ts.start, device=dev)
-            mb.append((match_h[:, ts].to(torch.int64) << sh).sum(1))
-        head_table = torch.stack(
-            [h_ln.to(torch.int64), row[:, 1].to(torch.int64), off0_h.to(torch.int64),
-             head_pos, *mb], dim=1,
-        )  # (K_heads, 4 + NB): small, gathered once per window
+            # run-level fast verify of the single-occurrence heads
+            g0_h = row[:, 0] - o_h_all
+            off0_h = row[:, 2] - o_h_all
+            cnt_h = _span_mismatches(dmi.text, g0_h, span_read_h, masks)
+            vt_h = (off0_h[:, None] + t_idx >= 0) & (g0_h[:, None] + t_idx + k <= row[:, 3:4])
+            match_h = (h_ln == 1)[:, None] & vt_h & (cnt_h == 0)  # (K_heads, R_run)
+            mb = []  # bitmap words in [0, 2^32): bit t of word t >> 5
+            for wdi in range(NB):
+                ts = slice(32 * wdi, min(32 * (wdi + 1), R_run))
+                sh = torch.arange(ts.stop - ts.start, device=dev)
+                mb.append((match_h[:, ts].to(torch.int64) << sh).sum(1))
+            head_table = torch.stack(
+                [h_ln.to(torch.int64), row[:, 1].to(torch.int64), off0_h.to(torch.int64),
+                 head_pos, *mb], dim=1,
+            )  # (K_heads, 4 + NB): small, gathered once per window
 
-        # redistribute: each window decodes its own bit, no big-table touch
-        wrow = head_table[ord_flat.clamp(max=K_heads - 1)]
-        ln = torch.where(bad.reshape(-1), 0, wrow[:, 0])
-        t_w = (torch.arange(BW, device=dev) - wrow[:, 3]).clamp(0, R_run - 1)
-        mbits = wrow[:, 4]
-        for wdi in range(1, NB):
-            mbits = torch.where((t_w >> 5) == wdi, wrow[:, 4 + wdi], mbits)
-        found = (ln == 1) & (((mbits >> (t_w & 31)) & 1) == 1)
-        uid = torch.where(found, wrow[:, 1], -1).to(torch.int32)
-        off = torch.where(found, wrow[:, 2] + t_w, -1).to(torch.int32)
+            # redistribute: each window decodes its own bit, no big-table touch
+            wrow = head_table[ord_flat.clamp(max=K_heads - 1)]
+            ln = torch.where(bad.reshape(-1), 0, wrow[:, 0])
+            t_w = (torch.arange(BW, device=dev) - wrow[:, 3]).clamp(0, R_run - 1)
+            mbits = wrow[:, 4]
+            for wdi in range(1, NB):
+                mbits = torch.where((t_w >> 5) == wdi, wrow[:, 4 + wdi], mbits)
+            found = (ln == 1) & (((mbits >> (t_w & 31)) & 1) == 1)
+            uid = torch.where(found, wrow[:, 1], -1).to(torch.int32)
+            off = torch.where(found, wrow[:, 2] + t_w, -1).to(torch.int32)
 
-        # run-level slow path: slow-ness belongs to the run (its
-        # minimizer's slot), so slow runs compact on the head domain and
-        # each candidate is verified against the run's whole span
-        valid_h = torch.arange(K_heads, device=dev) < n_heads
-        sh_idx, n_slow = compact_mask(valid_h & (h_ln >= 2), K_slow)
-        sh_valid = sh_idx >= 0
-        sj = torch.where(sh_valid, sh_idx, 0).to(torch.int64)
-        s_start = h_start[sj]
-        s_end = torch.clamp(s_start + h_ln[sj], max=dmi.n_occ)
-        f0 = head_pos[sj]  # the run's first window (flat)
-        nxt = head_pos[(sj + 1).clamp(max=K_heads - 1)]
-        r_len = (torch.where(sj + 1 < n_heads, nxt, BW) - f0).clamp(0, R_run)
-        o_h = o_h_all[sj]
-        span_read = [s[sj] for s in span_read_h]
-        live = sh_valid[:, None] & (t_idx < r_len[:, None])
+        with trace.span("v2.slow"):
+            # run-level slow path: slow-ness belongs to the run (its
+            # minimizer's slot), so slow runs compact on the head domain and
+            # each candidate is verified against the run's whole span
+            valid_h = torch.arange(K_heads, device=dev) < n_heads
+            sh_idx, n_slow = compact_mask(valid_h & (h_ln >= 2), K_slow)
+            sh_valid = sh_idx >= 0
+            sj = torch.where(sh_valid, sh_idx, 0).to(torch.int64)
+            s_start = h_start[sj]
+            s_end = torch.clamp(s_start + h_ln[sj], max=dmi.n_occ)
+            f0 = head_pos[sj]  # the run's first window (flat)
+            nxt = head_pos[(sj + 1).clamp(max=K_heads - 1)]
+            r_len = (torch.where(sj + 1 < n_heads, nxt, BW) - f0).clamp(0, R_run)
+            o_h = o_h_all[sj]
+            span_read = [s[sj] for s in span_read_h]
+            live = sh_valid[:, None] & (t_idx < r_len[:, None])
 
-        uid_s = torch.full((K_slow, R_run), -1, dtype=torch.int32, device=dev)
-        off_s = torch.full_like(uid_s, -1)
-        cnt_s = torch.zeros_like(uid_s)
-        s_len = torch.where(sh_valid, s_end - s_start, 0)
-        # the one host read of the locate: the scan's trip count. Scanning
-        # past a window's first hit leaves uid/off at that hit and is what
-        # cnt needs, so the full trip count gives the JAX loop's answer
-        # in both modes, though JAX stops early when not counting.
-        for t in range(int(s_len.max())):
-            i = s_start + t
-            active = sh_valid & (i < s_end)
-            crow = dmi._occ_rows_safe[torch.where(active, i, 0).clamp(max=max(dmi.n_occ - 1, 0))]
-            g0 = crow[:, 0] - o_h
-            off0 = crow[:, 2] - o_h
-            cntm = _span_mismatches(dmi.text, g0, span_read, masks)
-            vt = (off0[:, None] + t_idx >= 0) & (g0[:, None] + t_idx + k <= crow[:, 3:4])
-            match = active[:, None] & live & vt & (cntm == 0)
-            first = match & (cnt_s == 0)
-            uid_s = torch.where(first, crow[:, 1:2], uid_s)
-            off_s = torch.where(first, off0[:, None] + t_idx, off_s).to(torch.int32)
-            cnt_s += match
+            uid_s = torch.full((K_slow, R_run), -1, dtype=torch.int32, device=dev)
+            off_s = torch.full_like(uid_s, -1)
+            cnt_s = torch.zeros_like(uid_s)
+            s_len = torch.where(sh_valid, s_end - s_start, 0)
+            # the one host read of the locate: the scan's trip count. Scanning
+            # past a window's first hit leaves uid/off at that hit and is what
+            # cnt needs, so the full trip count gives the JAX loop's answer
+            # in both modes, though JAX stops early when not counting.
+            trips = trace.host_read("locate.trips", lambda: int(s_len.max()))
+            trace.count("trips.slow", trips)
+            for t in range(trips):
+                i = s_start + t
+                active = sh_valid & (i < s_end)
+                crow = dmi._occ_rows_safe[torch.where(active, i, 0).clamp(max=max(dmi.n_occ - 1, 0))]
+                g0 = crow[:, 0] - o_h
+                off0 = crow[:, 2] - o_h
+                cntm = _span_mismatches(dmi.text, g0, span_read, masks)
+                vt = (off0[:, None] + t_idx >= 0) & (g0[:, None] + t_idx + k <= crow[:, 3:4])
+                match = active[:, None] & live & vt & (cntm == 0)
+                first = match & (cnt_s == 0)
+                uid_s = torch.where(first, crow[:, 1:2], uid_s)
+                off_s = torch.where(first, off0[:, None] + t_idx, off_s).to(torch.int32)
+                cnt_s += match
 
-        # scatter run results to their windows; bad windows and lanes
-        # that are not live land in the sink
-        f_t = f0[:, None] + t_idx
-        bad_t = bad.reshape(-1)[f_t.clamp(max=BW - 1)]
-        sink = torch.where(live & ~bad_t, f_t, BW).reshape(-1)
-        uid = _scatter_drop(uid, sink, uid_s.reshape(-1)).reshape(B, W)
-        off = _scatter_drop(off, sink, off_s.reshape(-1)).reshape(B, W)
-        if not count_occurrences:
-            return uid, off, n_slow, n_heads
-        cnt = _scatter_drop(found.to(torch.int32), sink, cnt_s.reshape(-1))
-        return uid, off, n_slow, n_heads, cnt.reshape(B, W)
+        with trace.span("v2.scatter"):
+            # scatter run results to their windows; bad windows and lanes
+            # that are not live land in the sink
+            f_t = f0[:, None] + t_idx
+            bad_t = bad.reshape(-1)[f_t.clamp(max=BW - 1)]
+            sink = torch.where(live & ~bad_t, f_t, BW).reshape(-1)
+            uid = _scatter_drop(uid, sink, uid_s.reshape(-1)).reshape(B, W)
+            off = _scatter_drop(off, sink, off_s.reshape(-1)).reshape(B, W)
+            if not count_occurrences:
+                return uid, off, n_slow, n_heads
+            cnt = _scatter_drop(found.to(torch.int32), sink, cnt_s.reshape(-1))
+            return uid, off, n_slow, n_heads, cnt.reshape(B, W)
 
     return locate
 

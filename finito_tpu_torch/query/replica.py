@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from finito_tpu_torch.ops.bits import put_i32
 from finito_tpu_torch.ops.rank24 import (
@@ -60,6 +59,7 @@ from finito_tpu_torch.ops.streaming import (
     n_chunks,
     unchunk_grid,
 )
+from finito_tpu_torch.utils import trace
 
 
 def rank1(tab: torch.Tensor, i):
@@ -259,7 +259,7 @@ def make_replica_locate_v2(index, K_seg: int = 4096, chunk: int | None = None,
             emit, cand, untrusted = chain(tab, C, edge, codes)
         emit, cand, n_seg = repair(tab, C, P["ck"], P["jl"], P["jr"], P["suu"], codes,
                                    emit, cand, untrusted)
-        with record_function("replica_tail"):
+        with trace.span("replica_tail"):
             uid, off = resolve_windows(P, emit, cand, cc_len)
         return uid, off, n_seg
 

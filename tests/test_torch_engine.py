@@ -152,11 +152,11 @@ def test_rle_overflow_falls_back_to_host_merge(fixture):
     _, engine, reads, _, _ = fixture
     want = engine.merged_pairs_flat(reads)
     line_lens, rest = engine.merged_pairs_flat_begin(reads)
-    batch_codes, lens, uid_d, off_d, _K, _out, verify, lens_d = rest
+    batch_codes, lens, uid_d, off_d, _K, _out, verify, lens_d, chunk = rest
     small = merge_rle(uid_d, off_d, lens_d, 2)
     assert int(small[4][0]) > 2
     got = engine.merged_pairs_flat_end(
-        (line_lens, (batch_codes, lens, uid_d, off_d, 2, small, verify, lens_d))
+        (line_lens, (batch_codes, lens, uid_d, off_d, 2, small, verify, lens_d, chunk))
     )
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

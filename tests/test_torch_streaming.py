@@ -20,6 +20,7 @@ from finito_tpu.ops import streaming as jst
 from finito_tpu_torch.ops import bitvec as pbv
 from finito_tpu_torch.ops import streaming as pst
 from finito_tpu_torch.ops.bits import put_i32
+from finito_tpu_torch.utils import trace
 
 # plain module name: pytest puts tests/ on sys.path, and a `tests` package
 # installed elsewhere cannot shadow it
@@ -152,10 +153,11 @@ def test_chain_stream_ranks_equal_jax_and_fixed(fixture, chunk):
     want, n_want = jax.jit(jst.make_chain_stream_ranks(n8, k, n_nodes, K, chunk=chunk))(
         *_j(tables, *names), jnp.asarray(reads))
     reads_t = torch.from_numpy(reads)
-    before = pst.straggler_pending.reads
+    before = trace.counts.get("host_reads.straggler", 0)
     got, n_got = pst.make_chain_stream_ranks(n8, k, n_nodes, K, chunk=chunk)(
         *_p(tables, *names), reads_t)
-    assert pst.straggler_pending.reads > before  # at least the read that ends the loop
+    # at least the read that ends the loop
+    assert trace.counts.get("host_reads.straggler", 0) > before
     assert got.dtype == torch.int32 and int(n_got) == int(n_want) <= K
     _equal(got, want)
     fixed = pbv.kmer_ranks_fixed(pbv.DeviceSBWT.from_host(index.sbwt, device="cpu"), reads_t, k)

@@ -141,6 +141,7 @@ def _worker(mode, pid, nproc, port, out) -> int:
     from finito_tpu_torch.parallel import distributed as dist
     from finito_tpu_torch.parallel import mesh as pm
     from finito_tpu_torch.parallel import shard_build as sb
+    from finito_tpu_torch.utils import trace
 
     torch.set_num_threads(1)
     backend = "nccl" if mode == "nccl-shared" else "gloo"
@@ -170,13 +171,15 @@ def _worker(mode, pid, nproc, port, out) -> int:
             tables = pm.place_minimizer_shards(mesh, sh)
             placed = {id(t): t for t in tables.reshape(-1) if t is not None}
             fn = pm.sharded_minimizer_locate_fn(mesh, sh, K_slow=reads.shape[0] * W, tables=tables)
+            r0 = trace.counts.get("host_reads.locate.trips", 0)
             uid, off, n_slow = fn(reads)
+            n_reads = trace.counts.get("host_reads.locate.trips", 0) - r0
             key = f"loc{k}_{dp}x{tp}"
             res[key + "_uid"], res[key + "_off"] = uid.numpy(), off.numpy()
             res[key + "_n_slow"] = np.array(int(n_slow))
             res[key + "_rows"] = np.array([sum(t["text"].shape[0] for t in placed.values()),
                                            sh.text_arr.shape[0] * sh.text_arr.shape[1]])
-            res[key + "_host_reads"] = np.array([fn.host_reads, int((mesh.owners == pid).sum())])
+            res[key + "_host_reads"] = np.array([n_reads, int((mesh.owners == pid).sum())])
 
     # (c) the builds; every block this rank packs is one of its shards
     calls = []
