@@ -39,14 +39,20 @@ Phases, one line or more each:
         query --host-exact, windows/s; then the multi-occurrence error
         (one unitig stored twice) under both locate forms: exit code 1;
      d. at 4,641,652 bp only: search-fmin --engine dense, stream and
-        replica --device cuda (plain PyTorch, no kernel of their own):
-        every window against the analytic oracle, sampled reads against
-        the host oracle, the output byte-identical to c.'s minimizer
-        run; the engine's table build time, wall, µs/query, peak memory,
-        and on one (8192, 128) chunk the locate's ms (CUDA events),
-        device time and operations (torch.profiler), host reads, n_seg
-        against K, and each plain-torch phase's share (one JSON line per
-        engine);
+        replica --device cuda (plain PyTorch but for the chain kernel of
+        stream and replica, csrc/chain_opt.cu, one launch a chunk and
+        re-run): every window against the analytic oracle, sampled reads
+        against the host oracle, the output byte-identical to c.'s
+        minimizer run; the engine's table build time, wall, µs/query,
+        peak memory, chain kernel launches against the chunks; on one
+        (8192, 128) chunk the locate's ms (CUDA events), device time and
+        operations (torch.profiler), host reads, n_seg against K, and
+        each phase's share (one JSON line per engine); for stream and
+        replica, the chain kernel against its plain version on the card,
+        bit for bit, at (8192, 128) and (8192, 256) (the served path's
+        bucket of 150 bp reads), with the kernel's device time
+        (torch.profiler), its wrapper's time (CUDA events), its launches,
+        one lane's device time and the plain version's time;
      e. at 4,641,652 bp only, the mesh: for (dp, tp) in (1, 2), (2, 2),
         (1, 4) a DeviceQueryEngine(mesh=(dp, tp)) whose dp * tp devices
         are all cuda:0 (one card), driven by search-fmin's own serving
@@ -113,7 +119,8 @@ Phases, one line or more each:
      every window of each against its oracle). The front-end kernel is held bit for bit to its plain
      version on every input these runs gave it (k=63 included).
 
-Prints the kernels' JSON line (launches in total and per main-path run),
+Prints the kernels' JSON line (launches in total and per main-path run;
+the chain kernel's checks),
 the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
 stops after phase 3; --sweep times the kernel across its shapes instead
 (one JSON line a row).
@@ -204,6 +211,10 @@ TOOLS_BENCH_EXTRA = ("stream", "replica", "repeat")
 TOOLS_BENCH_REPEAT = 1_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
+# the chain kernel's check shapes: a CLI chunk of 128 bp reads, and the
+# served path's (8192, 256) bucket of 150 bp reads
+CHAIN_SHAPES = ((8192, 128), (8192, 256))
+CHAIN_CHECKS = []  # one entry a (engine, shape) check, for the kernels' line
 
 
 def log(msg: str) -> None:
@@ -639,7 +650,10 @@ def phase_profile(fn, phases) -> dict:
     the whole call and for each record_function range named in phases,
     the device time of the operations launched inside it (kernels and
     copies), their count, and the range's host time (summed over the
-    range's occurrences)."""
+    range's occurrences). An operation is tied to its launch by the
+    correlation id of its runtime call (cudaLaunchKernel and kin), so a
+    kernel launched through ctypes, with no ATen op around it, counts
+    too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -649,15 +663,21 @@ def phase_profile(fn, phases) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    launched = [(e.time_range.start, e.time_range.end, k.duration)
-                for e in events for k in e.kernels]
-    out = {"all": {"device_ms": sum(d for _, _, d in launched) / 1e3, "launches": len(launched)}}
-    for name in phases:
-        ranges = [e.time_range for e in events if e.name == name]
-        inside = [d for s, t, d in launched if any(r.start <= s and t <= r.end for r in ranges)]
-        out[name] = {"device_ms": sum(inside) / 1e3, "launches": len(inside),
-                     "host_ms": sum(r.end - r.start for r in ranges) / 1e3}
+    ops, runtime, ranges = [], {}, {name: [] for name in phases}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                ops.append((e.correlation_id(), e.duration_ns()))
+        elif e.name().startswith("cu"):
+            runtime[e.correlation_id()] = e.start_ns()
+        elif e.is_user_annotation() and e.name() in ranges:
+            ranges[e.name()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    out = {"all": {"device_ms": sum(d for _, d in ops) / 1e6, "launches": len(ops)}}
+    for name, spans in ranges.items():
+        inside = [d for c, d in ops
+                  if c in runtime and any(a <= runtime[c] <= b for a, b in spans)]
+        out[name] = {"device_ms": sum(inside) / 1e6, "launches": len(inside),
+                     "host_ms": sum(b - a for a, b in spans) / 1e6}
     return out
 
 
@@ -677,6 +697,59 @@ PHASES = {
                  "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
                 ("replica_tail", "finito_tpu_torch/query/replica.py:resolve_windows")],
 }
+
+
+def chain_kernel_check(mode: str, tables, codes, n8: int, k: int, n_nodes: int,
+                       aug: bool) -> list:
+    """The chain kernel (make_chain_opt on a CUDA tensor) against its
+    plain version (make_chain_opt_ref) on the card, bit for bit, at
+    CHAIN_SHAPES: the (8192, 128) chunk's codes, and at (8192, 256) each
+    row two of its reads back to back, every other row cut to 150 codes
+    and padded. At each: the kernel's device time (torch.profiler), its
+    wrapper's time (CUDA events), its launches, the plain version's time
+    (CUDA events), one lane's device time (row 0 alone: L dependent
+    steps, the latency floor) and the bytes' time at the card's rate.
+    Returns one dict a shape, also kept in CHAIN_CHECKS."""
+    import torch
+
+    from finito_tpu_torch.ops import streaming
+
+    if tuple(codes.shape) != CHAIN_SHAPES[0]:
+        raise AssertionError(f"chain kernel check: a {tuple(codes.shape)} chunk, not {CHAIN_SHAPES[0]}")
+    chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
+    plain = streaming.make_chain_opt_ref(n8, k, n_nodes, aug=aug)
+    wide = codes.new_full((codes.shape[0], 256), 255)
+    wide[:, :128] = codes
+    wide[:, 128:] = codes.roll(1, 0)
+    wide[1::2, 150:] = 255
+    out = []
+    for B, L in CHAIN_SHAPES:
+        c = {128: codes, 256: wide}[L][:B].contiguous()
+        n0 = streaming.make_chain_opt.launches
+        got = chain(*tables, c)
+        want = plain(*tables, c)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+        if err or any(a.shape != b.shape for a, b in zip(got, want)):
+            raise AssertionError(f"chain kernel ({mode}, aug={aug}, {tuple(c.shape)}) disagrees "
+                                 f"with the plain version: max_abs_err {err}")
+        dev_ms, n_seen, names = device_ms(lambda: chain(*tables, c), "chain_opt_kernel", reps=20)
+        ms = time_cuda(lambda: chain(*tables, c), 20, 2)
+        plain_ms = time_cuda(lambda: plain(*tables, c), 2, 1)
+        lane_ms, _, _ = device_ms(lambda: chain(*tables, c[:1]), "chain_opt_kernel", reps=20)
+        row = {"engine": mode, "aug": aug, "wide_rank24": tables[0].dim() == 2, "B": B, "L": L,
+               "max_abs_err": err, "device_ms": dev_ms, "profiled_launches": n_seen,
+               "kernels": names, "ms": ms, "plain_ms": plain_ms, "lane_device_ms": lane_ms,
+               "lane_step_us": lane_ms / L * 1e3,
+               "bytes_ms": B * L * 10 / HBM_BYTES_PER_S * 1e3,
+               "launches": streaming.make_chain_opt.launches - n0}
+        log(f"chain kernel ({mode}, {B}, {L}): bit-exact; device {dev_ms} ms a launch "
+            f"(torch.profiler, {n_seen} seen), wrapper {ms} ms (CUDA events), plain {plain_ms} ms, "
+            f"one lane {lane_ms} ms ({row['lane_step_us']} us a step), bytes at 3.35 TB/s "
+            f"{row['bytes_ms']} ms; {row['launches']} launches")
+        out.append(row)
+    CHAIN_CHECKS.extend(out)
+    return out
 
 
 def engine_batch(eng, codes_both: np.ndarray) -> dict:
@@ -733,6 +806,8 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
             tab, C, ck, jl, jr, edge, suu = (P[n] for n in ("tab", "C", "ck", "jl", "jr", "edge",
                                                             "suu"))
             n8, n_nodes, aug = P["n8"], P["n_nodes"], P["aug"]
+        res["chain_kernel"] = chain_kernel_check(eng.mode, (tab, C, edge), codes, n8, k, n_nodes,
+                                                 aug)
         chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
         repair = streaming.make_segment_repair(n8, k, n_nodes, res["K"], aug=aug)
         grids = chain(tab, C, edge, codes)
@@ -768,17 +843,26 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     import torch
 
     from finito_tpu_torch import cli
+    from finito_tpu_torch.ops import streaming
     from finito_tpu_torch.query import engine
+    from finito_tpu_torch.utils import trace
 
     opath = os.path.join(work, f"out_{mode}.txt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    chain0 = streaming.make_chain_opt.launches
     with engines_built(engine) as built:
         rc, logs, wall, launches = run_counted(
             cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--engine", mode,
                        "--device", DEVICE])
     if rc != 0:
         raise RuntimeError(f"search-fmin --engine {mode} failed:\n{logs}")
+    # the CLI's tally covers its run: one chain launch a chunk and re-run
+    chain_n, chunks = streaming.make_chain_opt.launches - chain0, trace.counts.get("chunks", 0)
+    if chain_n != trace.counts.get("chain.kernel", 0) or (
+            chain_n < chunks if mode != "dense" else chain_n):
+        raise AssertionError(f"search-fmin --engine {mode}: {chain_n} chain kernel launches, "
+                             f"{trace.counts.get('chain.kernel', 0)} counted, {chunks} chunks")
     peak = torch.cuda.max_memory_allocated() / 2**20
     (eng, build_s, jumps_s), = built
     us_io = float(re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)[-1])
@@ -787,7 +871,8 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     log(f"{what}: engine tables {build_s} s (of which build_lcs_jump_tables {jumps_s} s), "
         f"wall {wall} s, us/query {us_io} (excluding I/O), "
         f"{us_e2e} (end to end), peak device memory {peak} MiB, front-end kernel launches "
-        f"{launches} (this engine has no kernel of its own)")
+        f"{launches}, chain kernel launches {chain_n} ({chunks} chunks, "
+        f"{trace.counts.get('capacity_reruns', 0)} re-run)")
     check(what, opath, index.unitigs.concat, index.unitigs.ends,
           lambda reads: [oracle_line(index, r) for r in reads])
     with open(opath, "rb") as f, open(os.path.join(work, "out.txt"), "rb") as g:
@@ -797,7 +882,8 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     batch = engine_batch(eng, both)
     row = {"engine": mode, "index_bp": genome_len, "tables_s": build_s,
            "lcs_jump_tables_s": jumps_s, "wall_s": wall,
-           "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak, "batch": batch}
+           "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak,
+           "chain_kernel_launches": chain_n, "batch": batch}
     log(json.dumps(row))
     return eng, build_s
 
@@ -2356,6 +2442,10 @@ def main() -> int:
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
     if foreign:
         raise AssertionError(f"the run imported {foreign[:5]}: the port must import none of {FOREIGN}")
+    from finito_tpu_torch.ops import streaming
+
+    if len(CHAIN_CHECKS) != 2 * len(CHAIN_SHAPES):
+        raise AssertionError(f"{len(CHAIN_CHECKS)} chain kernel checks (stream and replica expected)")
     log(json.dumps({"kernels": [{
         "name": "minimizer_windows", "route": "cuda",
         "source": "finito_tpu_torch/csrc/minimizer_front.cu",
@@ -2366,6 +2456,10 @@ def main() -> int:
         "ms": kern["ms"], "device_ms": kern["device_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "share_of_bound": kern["share_of_bound"], "library_ms": None,
+    }, {
+        "name": "make_chain_opt", "route": "cuda", "source": "finito_tpu_torch/csrc/chain_opt.cu",
+        "replaces": None, "launches": streaming.make_chain_opt.launches,
+        "checks": CHAIN_CHECKS, "library_ms": None,
     }]}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(card)

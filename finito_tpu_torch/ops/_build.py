@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = [_PKG / "csrc" / "minimizer_front.cu"]
+_SOURCES = [_PKG / "csrc" / "minimizer_front.cu", _PKG / "csrc" / "chain_opt.cu"]
 BUILD_ROOT = _PKG.parent / "build" / "finito_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +80,8 @@ def library() -> ctypes.CDLL:
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.fin_minimizer_windows.argtypes = [vp, ll, ll, ci, ci, vp, vp, vp, vp, vp]
         lib.fin_minimizer_windows.restype = ci
+        lib.fin_chain_opt.argtypes = [vp, ll, ll, ci, vp, ci, ll, vp, vp, ll, ci, vp, vp, vp, vp]
+        lib.fin_chain_opt.restype = ci
         build_info["path"] = str(path)
         _lib = lib
         return lib

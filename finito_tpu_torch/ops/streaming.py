@@ -1,14 +1,16 @@
 """Stream compaction and the two-phase streaming rank engine of the
 port: counterpart of finito_tpu/ops/streaming.py (compact_mask, the
 chunking helpers, make_chain_scan, make_chain_opt, make_segment_repair's
-default path and make_chain_stream_ranks), in plain torch.
+default path and make_chain_stream_ranks), in plain torch but for the
+chain's kernel.
 
 Phase A -- the optimistic chain scan (make_chain_opt): a hybrid
-automaton per lane, one Python step per read position. Immature lanes
-track the SBWT interval of seq[ks..j] (2 rank gathers a step); at the
-first window close a lane follows the forward-edge table (1 gather a
-step). Any failure marks a k-wide shadow of positions UNTRUSTED and
-resets the lane.
+automaton per lane; on the card one launch of csrc/chain_opt.cu (a
+thread a lane), on the CPU one Python step per read position
+(make_chain_opt_ref). Immature lanes track the SBWT interval of
+seq[ks..j] (2 rank gathers a step); at the first window close a lane
+follows the forward-edge table (1 gather a step). Any failure marks a
+k-wide shadow of positions UNTRUSTED and resets the lane.
 
 Phase B -- the segment repair (make_segment_repair): untrusted runs are
 compacted to one lane each (split every Q payload positions), seeded
@@ -152,8 +154,10 @@ def make_chain_scan(n8: int, k: int, n_nodes: int):
     return run
 
 
-def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):
-    """Optimistic hybrid chain producing repairable untrusted RUNS.
+def make_chain_opt_ref(n8: int, k: int, n_nodes: int, aug: bool = False):
+    """Optimistic hybrid chain producing repairable untrusted RUNS: the
+    plain version, on any device (make_chain_opt runs it for CPU
+    tensors; chip_smoke.py holds the kernel to it on the card).
 
     run(tab, C, edge, codes) -> (emit, cand, untrusted), each (B, L):
       emit:  int32, >= 0 trusted node rank of the k-mer ending at j; -1
@@ -182,42 +186,112 @@ def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):
         x = torch.full_like(lo, -1)
         lastfail = torch.full_like(lo, -(k + 2))
         emits, cands, untr = [], [], []
-        with trace.span("chain_opt"):
-            for j in range(L):
-                c = cs[:, j]
-                invalid = c > 3
-                em = x >= 0  # mature: x = node of the k-mer ending at j-1
-                xe_raw = edge[torch.where(em, x * 4 + torch.where(invalid, 0, c), 0)]
-                e_found = em & ~invalid & (xe_raw >= 0)
-                xe = (xe_raw & ((1 << 24) - 1)) if aug else xe_raw
-                nlo, nhi = update_interval24(tab, n8, C, c, lo, hi)
-                failed = invalid | (nlo < 0)
-                mature = ks == j - k + 1
-                close = ~em & ~failed & (j - ks + 1 == k)
-                emit_i = torch.where(
-                    close, nlo, torch.where(failed & mature & ~invalid, -1, UNKNOWN)
-                )
-                emit_i = torch.where(invalid, -1, emit_i)
-                emits.append(torch.where(em, torch.where(e_found, xe, -1), emit_i))
-                single_i = ~failed & (nlo == nhi)
-                cands.append(torch.where(
-                    em,
-                    torch.where(e_found, xe_raw, -1),
-                    torch.where(single_i, nlo, -1),
-                ))
-                any_fail = torch.where(em, ~e_found, failed)
-                lastfail = torch.where(any_fail, j, lastfail)
-                untr.append(j - k <= lastfail)
+        for j in range(L):
+            c = cs[:, j]
+            invalid = c > 3
+            em = x >= 0  # mature: x = node of the k-mer ending at j-1
+            xe_raw = edge[torch.where(em, x * 4 + torch.where(invalid, 0, c), 0)]
+            e_found = em & ~invalid & (xe_raw >= 0)
+            xe = (xe_raw & ((1 << 24) - 1)) if aug else xe_raw
+            nlo, nhi = update_interval24(tab, n8, C, c, lo, hi)
+            failed = invalid | (nlo < 0)
+            mature = ks == j - k + 1
+            close = ~em & ~failed & (j - ks + 1 == k)
+            emit_i = torch.where(
+                close, nlo, torch.where(failed & mature & ~invalid, -1, UNKNOWN)
+            )
+            emit_i = torch.where(invalid, -1, emit_i)
+            emits.append(torch.where(em, torch.where(e_found, xe, -1), emit_i))
+            single_i = ~failed & (nlo == nhi)
+            cands.append(torch.where(
+                em,
+                torch.where(e_found, xe_raw, -1),
+                torch.where(single_i, nlo, -1),
+            ))
+            any_fail = torch.where(em, ~e_found, failed)
+            lastfail = torch.where(any_fail, j, lastfail)
+            untr.append(j - k <= lastfail)
 
-                x = torch.where(e_found, xe, torch.where(close, nlo, -1))
-                lo = torch.where(failed | em, 0, nlo)
-                hi = torch.where(failed | em, n_nodes - 1, nhi)
-                ks = torch.where(any_fail, j + 1, torch.where(em | close, j - k + 2, ks))
-            return (torch.stack(emits, dim=1).to(torch.int32),
-                    torch.stack(cands, dim=1).to(torch.int32),
-                    torch.stack(untr, dim=1))
+            x = torch.where(e_found, xe, torch.where(close, nlo, -1))
+            lo = torch.where(failed | em, 0, nlo)
+            hi = torch.where(failed | em, n_nodes - 1, nhi)
+            ks = torch.where(any_fail, j + 1, torch.where(em | close, j - k + 2, ks))
+        return (torch.stack(emits, dim=1).to(torch.int32),
+                torch.stack(cands, dim=1).to(torch.int32),
+                torch.stack(untr, dim=1))
 
     return run
+
+
+_chain_kernel = None  # the ctypes function, loaded on the first launch
+
+
+def make_chain_opt(n8: int, k: int, n_nodes: int, aug: bool = False):
+    """The optimistic chain (make_chain_opt_ref's contract and outputs):
+    run(tab, C, edge, codes) -> (emit, cand, untrusted). The plain
+    version for a CPU tensor; for a CUDA tensor one launch of the
+    hand-written kernel (csrc/chain_opt.cu), whose rank24 form (flat or
+    wide) follows tab.dim() and whose edge form follows `aug`, or an
+    error. The kernel takes codes as a contiguous (B, L) uint8 tensor
+    with B * L < 2^31, and tab, C and edge as contiguous int32 tensors
+    (ops.bits.put_i32) on the same card. ``make_chain_opt.launches``
+    counts kernel launches, as does utils.trace's `chain.kernel`."""
+    plain = make_chain_opt_ref(n8, k, n_nodes, aug)
+
+    def run(tab, C, edge, codes):
+        if codes.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"make_chain_opt: unsupported device {codes.device}")
+        with trace.span("chain_opt"):
+            if codes.device.type == "cpu":
+                return plain(tab, C, edge, codes)
+            return _chain_opt_kernel(n8, k, n_nodes, aug, tab, C, edge, codes)
+
+    return run
+
+
+make_chain_opt.launches = 0
+
+
+def _chain_opt_kernel(n8, k, n_nodes, aug, tab, C, edge, codes):
+    """One launch of csrc/chain_opt.cu into buffers allocated here."""
+    global _chain_kernel
+    dev = codes.device
+    if codes.dtype != torch.uint8 or codes.dim() != 2 or not codes.is_contiguous():
+        raise ValueError("make_chain_opt: codes must be a contiguous (B, L) uint8 tensor")
+    for name, t in (("tab", tab), ("C", C), ("edge", edge)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"make_chain_opt: {name} must be a contiguous int32 tensor on {dev}")
+    wide = tab.dim() == 2
+    if (tab.dim() not in (1, 2) or (wide and tab.shape[1] != 2) or tab.shape[0] < 4 * n8
+            or n8 < 1 or C.numel() < 4 or edge.dim() != 1 or edge.numel() < 4 * n_nodes
+            or n_nodes < 1):
+        raise ValueError(f"make_chain_opt: tables {tuple(tab.shape)}, {tuple(C.shape)}, "
+                         f"{tuple(edge.shape)} do not hold n8={n8}, n_nodes={n_nodes}")
+    B, L = codes.shape
+    if B * L >= 1 << 31:
+        raise ValueError(f"make_chain_opt: B * L = {B * L} reaches 2^31 (32-bit indexing)")
+    emit = torch.empty((B, L), dtype=torch.int32, device=dev)
+    cand = torch.empty_like(emit)
+    untrusted = torch.empty((B, L), dtype=torch.bool, device=dev)
+    if B * L == 0:
+        return emit, cand, untrusted
+    if _chain_kernel is None:
+        from finito_tpu_torch.ops import _build
+
+        _chain_kernel = _build.library().fin_chain_opt
+    args = (codes.data_ptr(), B, L, k, tab.data_ptr(), int(wide), n8, C.data_ptr(),
+            edge.data_ptr(), n_nodes, int(aug), emit.data_ptr(), cand.data_ptr(),
+            untrusted.data_ptr())
+    if dev.index == torch.cuda.current_device():
+        rc = _chain_kernel(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = _chain_kernel(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chain_opt kernel launch failed: CUDA error {rc}")
+    make_chain_opt.launches += 1
+    trace.count("chain.kernel")
+    return emit, cand, untrusted
 
 
 def straggler_pending(active: torch.Tensor) -> bool:

@@ -4,7 +4,10 @@ package's: the chunking helpers, make_chain_opt (both edge forms, all
 three outputs), make_segment_repair (emit, cand and n_seg, also past its
 capacity) and make_chain_stream_ranks (unchunked and chunked, also
 against kmer_ranks_fixed), on mutation-heavy reads, the JAX tables fed
-straight into the port. Every comparison is exact."""
+straight into the port. Every comparison is exact. The chain's CUDA
+kernel (csrc/chain_opt.cu) is held bit for bit to the plain version on
+a card (the `cuda` marker); here, that a CPU tensor takes the plain
+version and another device raises."""
 
 from __future__ import annotations
 
@@ -121,6 +124,128 @@ def test_chain_opt_equals_jax(fixture, aug):
     for a, b in zip(got, want):
         _equal(a, b)
     assert np.asarray(want[2]).any()  # the reads leave runs to repair
+
+
+def _wide(tab):
+    """The flat rank24 entries (rank << 8 | byte) of an index as the wide
+    [rank, byte] rows build_rank24_tables gives past 2^24 nodes: the same
+    rows in the other form."""
+    t = np.asarray(tab, np.uint32)
+    return np.stack([t >> np.uint32(8), t & np.uint32(0xFF)], axis=1)
+
+
+def _chain_tables(fixture, aug, form, device):
+    _, _, _, _, tables, _ = fixture
+    tab = tables["tab"] if form == "flat" else _wide(tables["tab"])
+    return [put_i32(a, device) for a in (tab, tables["C"], tables["edge_aug" if aug else "edge"])]
+
+
+def _edge_rows(reads, k):
+    """The fixture's reads plus rows that reach the chain's edges: N codes
+    (4) mid-read, a row whose valid part is shorter than k, an all-pad
+    row, a row of one code."""
+    extra = np.full((4, reads.shape[1]), 255, np.uint8)
+    extra[0] = reads[0]
+    extra[0, 3::7] = 4
+    extra[1, : k - 1] = reads[1, : k - 1]
+    extra[3] = 2
+    return np.concatenate([reads, extra])
+
+
+def _text_rows(index, B, L, seed):
+    """(B, L) rows of 32-base stretches of the index's unitig text, 0.5%
+    substituted, with N codes and pad tails: long mature runs, window
+    failures at every stretch's seam and at every mutation."""
+    rng = np.random.default_rng(seed)
+    text = np.asarray(index.unitigs.concat, np.uint8)
+    starts = rng.integers(0, max(1, text.size - 32), size=(B, -(-L // 32)))
+    idx = np.minimum(starts[:, :, None] + np.arange(32), text.size - 1)
+    rows = text[idx].reshape(B, -1)[:, :L].copy()
+    hit = rng.random((B, L)) < 0.005
+    rows[hit] = (rows[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    rows[rng.random((B, L)) < 0.002] = 4
+    cut = rng.integers(L // 2, L + 1, B)
+    rows[np.arange(L)[None, :] >= cut[:, None]] = 255
+    return rows
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_chain_opt_cpu_takes_plain_version(fixture, aug):
+    """A CPU tensor runs the plain version: equal outputs, no launch."""
+    k, n8, n_nodes, reads, _, _ = fixture
+    tabs = _chain_tables(fixture, aug, "flat", "cpu")
+    codes = torch.from_numpy(_edge_rows(reads, k))
+    launches, counted = pst.make_chain_opt.launches, trace.counts.get("chain.kernel", 0)
+    got = pst.make_chain_opt(n8, k, n_nodes, aug=aug)(*tabs, codes)
+    assert pst.make_chain_opt.launches == launches == 0
+    assert trace.counts.get("chain.kernel", 0) == counted
+    for a, b in zip(got, pst.make_chain_opt_ref(n8, k, n_nodes, aug=aug)(*tabs, codes)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_chain_opt_wide_table_equals_flat(fixture, aug):
+    """The plain version reads both rank24 forms alike: the wide rows the
+    kernel is held to on the card are the same index."""
+    k, n8, n_nodes, reads, _, _ = fixture
+    codes = torch.from_numpy(_edge_rows(reads, k))
+    chain = pst.make_chain_opt(n8, k, n_nodes, aug=aug)
+    flat = chain(*_chain_tables(fixture, aug, "flat", "cpu"), codes)
+    wide_tabs = _chain_tables(fixture, aug, "wide", "cpu")
+    assert wide_tabs[0].dim() == 2
+    for a, b in zip(chain(*wide_tabs, codes), flat):
+        assert torch.equal(a, b)
+
+
+def test_chain_opt_rejects_other_devices(fixture):
+    k, n8, n_nodes, _, _, _ = fixture
+    meta = [torch.zeros(4 * n8 + 8, dtype=torch.int32, device="meta")] * 3
+    with pytest.raises(ValueError):
+        pst.make_chain_opt(n8, k, n_nodes)(*meta, torch.zeros((2, 40), dtype=torch.uint8,
+                                                                 device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reads", "short", "empty", "chunked", "full"])
+@pytest.mark.parametrize("form", ["flat", "wide"])
+@pytest.mark.parametrize("aug", [False, True])
+def test_chain_kernel_matches_plain_on_card(fixture, aug, form, case):
+    """The kernel's three grids equal the plain version's bit for bit on
+    the card, for both edge forms and both rank24 forms: the fixture's
+    mutated reads with N codes, short and all-pad rows ("reads"); rows
+    shorter than k ("short"); B = 0 ("empty"); the lanes chunk_reads
+    makes ("chunked"); one (8192, 256) batch, a CLI chunk's shape
+    ("full")."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    k, n8, n_nodes, reads, _, index = fixture
+    tabs = _chain_tables(fixture, aug, form, "cuda")
+    rows = torch.from_numpy(_edge_rows(reads, k)).cuda()
+    batches = {
+        "reads": lambda: [rows],
+        "short": lambda: [rows[:, : k - 1].contiguous()],
+        "empty": lambda: [torch.zeros((0, L), dtype=torch.uint8, device="cuda")],
+        "chunked": lambda: [pst.chunk_reads(rows, k, c) for c in (k, k + 3, 17)],
+        "full": lambda: [torch.from_numpy(_text_rows(index, 8192, 256, k)).cuda()],
+    }[case]()
+    chain = pst.make_chain_opt(n8, k, n_nodes, aug=aug)
+    plain = pst.make_chain_opt_ref(n8, k, n_nodes, aug=aug)
+    for codes in batches:
+        launches, counted = pst.make_chain_opt.launches, trace.counts.get("chain.kernel", 0)
+        got = chain(*tabs, codes)
+        torch.cuda.synchronize()
+        n = int(codes.numel() > 0)
+        assert pst.make_chain_opt.launches == launches + n
+        assert trace.counts.get("chain.kernel", 0) == counted + n
+        assert [g.dtype for g in got] == [torch.int32, torch.int32, torch.bool]
+        if case == "empty":
+            assert all(g.shape == (0, L) for g in got)
+            continue
+        want = plain(*tabs, codes)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+        if case in ("reads", "full"):
+            assert (want[0] >= 0).any() and want[2].any()
 
 
 @pytest.mark.parametrize("aug", [False, True])
