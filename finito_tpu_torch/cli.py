@@ -426,13 +426,44 @@ def build_fmin(argv: List[str]) -> int:
 
 # -------------------------------------------------------------- search-fmin
 
+# search-fmin's chunk with a device engine: at most CHUNK reads, and at
+# most SLOT_BUDGET code slots in the padded dispatch the engine makes of
+# it (query.engine.padded_shape of both strands: rows 2 * reads rounded up
+# to a power of two, columns the longest read rounded up to 128). The
+# device memory of a chunk grows with its slots, not its reads. 2^24, from
+# PacBio HiFi reads (5-25 kbp, 256 a chunk at (512, 25,088)) on one H100
+# 80GB: served at 6.0-7.7 M k-mer queries/s with a 12.4 GiB peak, against
+# 5.0-6.3 M and 24.6 GiB at 2^25 and 6.3 M and 48.9 GiB at 2^26; at 2^23
+# as fast as 2^24, but the peak moved with the seed (6.2-6.3 GiB). The
+# worst chunk the budget lets through, one read of 8,192 bases among
+# 1,023 of k bases (every window slot a v2 run head), peaks at 16.1 GiB
+# with its capacity re-runs forced. 150 bp reads stay 4,096 a chunk at
+# (8192, 256), 2^21 slots.
+CHUNK = 4096
+SLOT_BUDGET = 1 << 24
+
+
+def _chunk_reads(longest: int) -> int:
+    """The most reads a chunk whose longest read has `longest` bases may
+    hold: the power of two, up to CHUNK, whose padded dispatch fits in
+    SLOT_BUDGET (the rows are a power of two), and never fewer than one."""
+    from finito_tpu_torch.query.engine import padded_shape
+
+    n = CHUNK
+    while n > 1 and np.prod(padded_shape(2 * n, longest)) > SLOT_BUDGET:
+        n //= 2
+    return n
+
 
 def _run_queries_streaming(reader, out, index, stats_filename: str, engine=None) -> int:
     """Per-read fwd+RC query, merge, and (u,p) output
     (ref: search_fmin.hh:33-84). With a device engine, reads are
     processed in chunked batches (one device dispatch per chunk, both
     strands stacked) instead of one dispatch per read; the output lines,
-    ordering and stats are identical."""
+    ordering and stats are identical. A chunk closes at CHUNK reads, or
+    before the read that would take its padded dispatch past SLOT_BUDGET
+    slots (counted in `chunks_by_budget`); a read over the budget on its
+    own goes alone."""
     from finito_tpu_torch.io.fastx import reverse_complement
 
     k = index.sbwt.get_k()
@@ -441,7 +472,6 @@ def _run_queries_streaming(reader, out, index, stats_filename: str, engine=None)
     kmers_count = 0
     kmers_count_rev = 0
     total_positive = 0
-    CHUNK = 4096
 
     def emit(read: bytes, result, r_result):
         nonlocal total_positive, kmers_count, kmers_count_rev, number_of_queries
@@ -500,29 +530,44 @@ def _run_queries_streaming(reader, out, index, stats_filename: str, engine=None)
         # in_flight: (handle, chunk ordinal) of the chunk dispatched last.
         trace.reset()
         pending: List[bytes] = []
+        # longest: bases of pending's longest read; most: the reads a chunk
+        # with that longest read may hold (_chunk_reads)
+        longest, most = 0, CHUNK
         in_flight = None
         n_chunks = 0
-        reading = trace.span("serve.read", n_chunks).open()
-        for _h, read in reader:
-            pending.append(bytes(read))
-            if len(pending) >= CHUNK:
-                reading.close()
-                t0 = cur_time_micros()
-                handle = engine.merged_pairs_flat_begin(pending)
-                if in_flight is not None:
-                    emit_batch(*in_flight)
-                in_flight = (handle, n_chunks)
-                n_chunks += 1
-                total_micros += cur_time_micros() - t0
-                pending = []
-                reading = trace.span("serve.read", n_chunks).open()
-        reading.close()
-        t0 = cur_time_micros()
-        if pending:
+
+        def dispatch():
+            nonlocal pending, in_flight, n_chunks, total_micros
+            t0 = cur_time_micros()
             handle = engine.merged_pairs_flat_begin(pending)
             if in_flight is not None:
                 emit_batch(*in_flight)
             in_flight = (handle, n_chunks)
+            n_chunks += 1
+            total_micros += cur_time_micros() - t0
+            pending = []
+
+        reading = trace.span("serve.read", n_chunks).open()
+        for _h, read in reader:
+            read = bytes(read)
+            if len(read) > longest:
+                longest, most = len(read), _chunk_reads(len(read))
+            if len(pending) >= most:  # this read would take the dispatch past the budget
+                reading.close()
+                trace.count("chunks_by_budget")
+                dispatch()
+                reading = trace.span("serve.read", n_chunks).open()
+                longest, most = len(read), _chunk_reads(len(read))
+            pending.append(read)
+            if len(pending) >= CHUNK:
+                reading.close()
+                dispatch()
+                reading = trace.span("serve.read", n_chunks).open()
+                longest, most = 0, CHUNK
+        reading.close()
+        if pending:
+            dispatch()
+        t0 = cur_time_micros()
         if in_flight is not None:
             emit_batch(*in_flight)
         total_micros += cur_time_micros() - t0

@@ -199,14 +199,18 @@ def _locate_dense(dsbwt: DeviceSBWT, loc_table: torch.Tensor, codes: torch.Tenso
     return _ranks_to_locations(loc_table, ranks)
 
 
+def padded_shape(B: int, L: int, min_rows: int = 1) -> Tuple[int, int]:
+    """The shape bucket of a (B, L) batch: L up to a multiple of 128 (at
+    least 128), B up to a power of two and at least min_rows (a mesh's
+    dp, so that a chunk of 1-2 reads still splits over dp)."""
+    return max(1 << max(0, (B - 1).bit_length()), min_rows), max(128, -(-L // 128) * 128)
+
+
 def _pad_codes(codes: np.ndarray, min_rows: int = 1) -> np.ndarray:
-    """Shape bucketing: L up to a multiple of 128 (at least 128), B up to
-    a power of two and at least min_rows (a mesh's dp, so that a chunk of
-    1-2 reads still splits over dp), padding with 255 (invalid, so padded
-    windows are absent)."""
+    """Shape bucketing (padded_shape), padding with 255 (invalid, so
+    padded windows are absent)."""
     B, L = codes.shape
-    L_pad = max(128, -(-L // 128) * 128)
-    B_pad = max(1 << max(0, (B - 1).bit_length()), min_rows)
+    B_pad, L_pad = padded_shape(B, L, min_rows)
     if (B_pad, L_pad) == (B, L):
         return codes
     padded = np.full((B_pad, L_pad), 255, dtype=np.uint8)
@@ -626,6 +630,10 @@ class DeviceQueryEngine:
             lens = np.array([c.size - k + 1 for c in batch_codes], dtype=np.int64)
             line_lens[np.asarray(batch_idx, dtype=np.int64)] = lens
             B2, Wp = uid_d.shape
+            # the padded dispatch's window slots against the windows of its
+            # reads, both strands: what the shape bucket costs
+            trace.count("window_slots", B2 * Wp)
+            trace.count("windows", 2 * int(lens.sum()))
             lens_pad = np.zeros(B2 // 2, np.int32)
             lens_pad[: len(batch_codes)] = lens
             lens_d = self._to_device(lens_pad)
@@ -680,6 +688,7 @@ class DeviceQueryEngine:
         with trace.span("query.host_merge", chunk):
             B = len(batch_codes)
             total = int(lens.sum())
+            trace.count("host_merge_windows", 2 * total)  # both strands, as `windows`
             j_of = np.repeat(np.arange(B), lens)
             w_of = np.arange(total, dtype=np.int64) - np.repeat(
                 np.concatenate([[0], np.cumsum(lens)[:-1]]), lens
