@@ -39,20 +39,22 @@ Phases, one line or more each:
         query --host-exact, windows/s; then the multi-occurrence error
         (one unitig stored twice) under both locate forms: exit code 1;
      d. at 4,641,652 bp only: search-fmin --engine dense, stream and
-        replica --device cuda (plain PyTorch but for the chain kernel of
-        stream and replica, csrc/chain_opt.cu, one launch a chunk and
-        re-run): every window against the analytic oracle, sampled reads
-        against the host oracle, the output byte-identical to c.'s
-        minimizer run; the engine's table build time, wall, µs/query,
-        peak memory, chain kernel launches against the chunks; on one
-        (8192, 128) chunk the locate's ms (CUDA events), device time and
-        operations (torch.profiler), host reads, n_seg against K, and
-        each phase's share (one JSON line per engine); for stream and
-        replica, the chain kernel against its plain version on the card,
-        bit for bit, at (8192, 128) and (8192, 256) (the served path's
-        bucket of 150 bp reads), with the kernel's device time
-        (torch.profiler), its wrapper's time (CUDA events), its launches,
-        one lane's device time and the plain version's time;
+        replica --device cuda (plain PyTorch but for the chain and repair
+        kernels of stream and replica, csrc/chain_opt.cu and
+        csrc/segment_repair.cu, one launch each a chunk and re-run): every
+        window against the analytic oracle, sampled reads against the host
+        oracle, the output byte-identical to c.'s minimizer run; the
+        engine's table build time, wall, µs/query, peak memory, chain and
+        repair kernel launches against the chunks, no repair trip and no
+        straggler read; on one (8192, 128) chunk the locate's ms (CUDA
+        events), device time and operations (torch.profiler), host reads,
+        n_seg against K, and each phase's share (one JSON line per
+        engine); for stream and replica, each kernel against its plain
+        version on the card, bit for bit, at (8192, 128) and (8192, 256)
+        (the served path's bucket of 150 bp reads), with the kernel's
+        device time (torch.profiler), its wrapper's time (CUDA events),
+        its launches and the plain version's time, and one lane's device
+        time (chain) or one step's and the latency bound (repair);
      e. at 4,641,652 bp only, the mesh: for (dp, tp) in (1, 2), (2, 2),
         (1, 4) a DeviceQueryEngine(mesh=(dp, tp)) whose dp * tp devices
         are all cuda:0 (one card), driven by search-fmin's own serving
@@ -120,7 +122,7 @@ Phases, one line or more each:
      version on every input these runs gave it (k=63 included).
 
 Prints the kernels' JSON line (launches in total and per main-path run;
-the chain kernel's checks),
+the chain and repair kernels' checks),
 the script's wall, then, last, {"ok": true, "device": ...}. --kernel-only
 stops after phase 3; --sweep times the kernel across its shapes instead
 (one JSON line a row).
@@ -215,6 +217,7 @@ INT_OPS_PER_S = 67e12  # the float32 rate outside the tensor cores, same sheet
 # served path's (8192, 256) bucket of 150 bp reads
 CHAIN_SHAPES = ((8192, 128), (8192, 256))
 CHAIN_CHECKS = []  # one entry a (engine, shape) check, for the kernels' line
+REPAIR_CHECKS = []  # the same for the repair kernel
 
 
 def log(msg: str) -> None:
@@ -687,14 +690,10 @@ PHASES = {
     "dense": [("kmer_ranks_fixed", "finito_tpu_torch/ops/bitvec.py:kmer_ranks_fixed"),
               ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
     "stream": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
-               ("segment_repair.fixed", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
-               ("segment_repair.straggler",
-                "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+               ("segment_repair", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
                ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
     "replica": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
-                ("segment_repair.fixed", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
-                ("segment_repair.straggler",
-                 "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
+                ("segment_repair", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
                 ("replica_tail", "finito_tpu_torch/query/replica.py:resolve_windows")],
 }
 
@@ -749,6 +748,78 @@ def chain_kernel_check(mode: str, tables, codes, n8: int, k: int, n_nodes: int,
             f"{row['bytes_ms']} ms; {row['launches']} launches")
         out.append(row)
     CHAIN_CHECKS.extend(out)
+    return out
+
+
+def repair_kernel_check(mode: str, chain_tables, tables, codes, n8: int, k: int,
+                        n_nodes: int, aug: bool) -> list:
+    """The repair kernel (make_segment_repair on a CUDA tensor) against
+    its plain trip loop (make_segment_repair_ref) on the card, bit for
+    bit in emit2, cand2 and n_seg, on the chain kernel's grids at
+    CHAIN_SHAPES (the rows chain_kernel_check builds), at the K the
+    engine would settle on (its first K, times 4 while n_seg exceeds
+    it). At each: the kernel's device time (torch.profiler), its
+    wrapper's time (CUDA events, the split compaction and the two grid
+    copies included), its launches, the plain loop's time (CUDA events)
+    and its trips (fixed and straggler: the longest lane's steps plus
+    one), one step's latency (the device time of one all-untrusted row,
+    whose lanes each walk k-1+Q steps) and the latency bound, the longest
+    lane's steps times that. Returns one dict a shape, also kept in
+    REPAIR_CHECKS."""
+    import torch
+
+    from finito_tpu_torch.ops import streaming
+    from finito_tpu_torch.utils import trace
+
+    chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
+    wide = codes.new_full((codes.shape[0], 256), 255)
+    wide[:, :128] = codes
+    wide[:, 128:] = codes.roll(1, 0)
+    wide[1::2, 150:] = 255
+    Q = k + 1
+    out = []
+    for B, L in CHAIN_SHAPES:
+        c = {128: codes, 256: wide}[L][:B].contiguous()
+        grids = chain(*chain_tables, c)
+        W = L - k + 1
+        stream = mode == "stream"
+        K, cap = max(1024, B * W // (64 if stream else 16)), (B * W if stream else B * L)
+        n_seg = int(streaming._split_segments(grids[2], Q, 1)[2])
+        while K < n_seg:
+            K = min(cap, 4 * K)
+        repair = streaming.make_segment_repair(n8, k, n_nodes, K, aug=aug)
+        plain = streaming.make_segment_repair_ref(n8, k, n_nodes, K, aug=aug)
+        n0 = streaming.make_segment_repair.launches
+        got = repair(*tables, c, *grids)
+        t0 = dict(trace.counts)
+        want = plain(*tables, c, *grids)
+        torch.cuda.synchronize()
+        trips = sum(trace.counts.get(n, 0) - t0.get(n, 0)
+                    for n in ("trips.repair_fixed", "trips.straggler"))
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(got, want))
+        if err or any(a.shape != b.shape for a, b in zip(got, want)):
+            raise AssertionError(f"repair kernel ({mode}, aug={aug}, {tuple(c.shape)}) disagrees "
+                                 f"with the plain loop: max_abs_err {err}")
+        dev_ms, n_seen, names = device_ms(lambda: repair(*tables, c, *grids),
+                                          "segment_repair_kernel", reps=20)
+        ms = time_cuda(lambda: repair(*tables, c, *grids), 20, 2)
+        plain_ms = time_cuda(lambda: plain(*tables, c, *grids), 2, 1)
+        one = [g[:1].contiguous() for g in grids[:2]] + [torch.ones_like(grids[2][:1])]
+        row_ms, _, _ = device_ms(lambda: repair(*tables, c[:1], *one), "segment_repair_kernel",
+                                 reps=20)
+        step_us = row_ms / (k - 1 + Q) * 1e3
+        row = {"engine": mode, "aug": aug, "wide_rank24": tables[0].dim() == 2, "B": B, "L": L,
+               "K": K, "n_seg": n_seg, "max_abs_err": err, "device_ms": dev_ms,
+               "profiled_launches": n_seen, "kernels": names, "ms": ms, "plain_ms": plain_ms,
+               "plain_trips": trips, "step_us": step_us,
+               "latency_bound_ms": (trips - 1) * step_us / 1e3,
+               "launches": streaming.make_segment_repair.launches - n0}
+        log(f"repair kernel ({mode}, {B}, {L}): bit-exact, n_seg {n_seg} of K {K}; device "
+            f"{dev_ms} ms a launch (torch.profiler, {n_seen} seen), wrapper {ms} ms (CUDA events), "
+            f"plain {plain_ms} ms ({trips} trips); one step {step_us} us, latency bound "
+            f"{row['latency_bound_ms']} ms; {row['launches']} launches")
+        out.append(row)
+    REPAIR_CHECKS.extend(out)
     return out
 
 
@@ -808,6 +879,9 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
             n8, n_nodes, aug = P["n8"], P["n_nodes"], P["aug"]
         res["chain_kernel"] = chain_kernel_check(eng.mode, (tab, C, edge), codes, n8, k, n_nodes,
                                                  aug)
+        res["repair_kernel"] = repair_kernel_check(eng.mode, (tab, C, edge),
+                                                   (tab, C, ck, jl, jr, suu), codes, n8, k,
+                                                   n_nodes, aug)
         chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
         repair = streaming.make_segment_repair(n8, k, n_nodes, res["K"], aug=aug)
         grids = chain(tab, C, edge, codes)
@@ -828,8 +902,10 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
             "phase": name, "where": where, "launches": p["launches"], "device_ms": p["device_ms"],
             "host_ms": p["host_ms"],
             "events_ms": alone.get(name.split(".")[0]),
-            "host_reads": (res["straggler_reads"] if name == "segment_repair.straggler" else 0),
         })
+    if res["straggler_reads"]:
+        raise AssertionError(f"{eng.mode}: {res['straggler_reads']} straggler reads in a locate "
+                             "on the card (the repair kernel takes none)")
     return res
 
 
@@ -850,7 +926,7 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     opath = os.path.join(work, f"out_{mode}.txt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    chain0 = streaming.make_chain_opt.launches
+    chain0, repair0 = streaming.make_chain_opt.launches, streaming.make_segment_repair.launches
     with engines_built(engine) as built:
         rc, logs, wall, launches = run_counted(
             cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--engine", mode,
@@ -863,6 +939,13 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
             chain_n < chunks if mode != "dense" else chain_n):
         raise AssertionError(f"search-fmin --engine {mode}: {chain_n} chain kernel launches, "
                              f"{trace.counts.get('chain.kernel', 0)} counted, {chunks} chunks")
+    # and one repair launch with each chain launch, no trip, no straggler read
+    repair_n = streaming.make_segment_repair.launches - repair0
+    if (repair_n != trace.counts.get("repair.kernel", 0) or repair_n != chain_n
+            or any(n.startswith(("trips.", "host_reads.straggler")) for n in trace.counts)):
+        raise AssertionError(f"search-fmin --engine {mode}: {repair_n} repair kernel launches, "
+                             f"{trace.counts.get('repair.kernel', 0)} counted, {chain_n} chain "
+                             f"launches, counters {sorted(trace.counts)}")
     peak = torch.cuda.max_memory_allocated() / 2**20
     (eng, build_s, jumps_s), = built
     us_io = float(re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)[-1])
@@ -871,7 +954,7 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     log(f"{what}: engine tables {build_s} s (of which build_lcs_jump_tables {jumps_s} s), "
         f"wall {wall} s, us/query {us_io} (excluding I/O), "
         f"{us_e2e} (end to end), peak device memory {peak} MiB, front-end kernel launches "
-        f"{launches}, chain kernel launches {chain_n} ({chunks} chunks, "
+        f"{launches}, chain and repair kernel launches {chain_n}, {repair_n} ({chunks} chunks, "
         f"{trace.counts.get('capacity_reruns', 0)} re-run)")
     check(what, opath, index.unitigs.concat, index.unitigs.ends,
           lambda reads: [oracle_line(index, r) for r in reads])
@@ -883,7 +966,7 @@ def engine_phase(mode, genome_len, prefix, qpath, work, check, index, both):
     row = {"engine": mode, "index_bp": genome_len, "tables_s": build_s,
            "lcs_jump_tables_s": jumps_s, "wall_s": wall,
            "us_query_excl_io": us_io, "us_query_e2e": us_e2e, "peak_mib": peak,
-           "chain_kernel_launches": chain_n, "batch": batch}
+           "chain_kernel_launches": chain_n, "repair_kernel_launches": repair_n, "batch": batch}
     log(json.dumps(row))
     return eng, build_s
 
@@ -1040,6 +1123,8 @@ def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index
         torch.cuda.synchronize()
         t_call = time.perf_counter() - t0
         stragglers = host_reads("straggler") - r0
+        if stragglers:
+            raise AssertionError(f"{what}: {stragglers} straggler reads a call on the card")
 
         def chained(reps):
             s = torch.zeros((), dtype=torch.int64, device=reads_dev.device)
@@ -2444,8 +2529,9 @@ def main() -> int:
         raise AssertionError(f"the run imported {foreign[:5]}: the port must import none of {FOREIGN}")
     from finito_tpu_torch.ops import streaming
 
-    if len(CHAIN_CHECKS) != 2 * len(CHAIN_SHAPES):
-        raise AssertionError(f"{len(CHAIN_CHECKS)} chain kernel checks (stream and replica expected)")
+    if len(CHAIN_CHECKS) != 2 * len(CHAIN_SHAPES) or len(REPAIR_CHECKS) != 2 * len(CHAIN_SHAPES):
+        raise AssertionError(f"{len(CHAIN_CHECKS)} chain and {len(REPAIR_CHECKS)} repair kernel "
+                             "checks (stream and replica expected)")
     log(json.dumps({"kernels": [{
         "name": "minimizer_windows", "route": "cuda",
         "source": "finito_tpu_torch/csrc/minimizer_front.cu",
@@ -2460,6 +2546,11 @@ def main() -> int:
         "name": "make_chain_opt", "route": "cuda", "source": "finito_tpu_torch/csrc/chain_opt.cu",
         "replaces": None, "launches": streaming.make_chain_opt.launches,
         "checks": CHAIN_CHECKS, "library_ms": None,
+    }, {
+        "name": "make_segment_repair", "route": "cuda",
+        "source": "finito_tpu_torch/csrc/segment_repair.cu", "replaces": None,
+        "launches": streaming.make_segment_repair.launches, "checks": REPAIR_CHECKS,
+        "library_ms": None,
     }]}))
     log(f"chip_smoke wall: {time.perf_counter() - t_start} s")
     log(card)

@@ -36,7 +36,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rank24.cuh"
+
 namespace {
+
+using fin::Cs;
+using fin::rank24;
 
 constexpr int kThreads = 64;
 
@@ -46,14 +51,6 @@ struct Tables {
   const int32_t* C;     // C[0..3] of the SBWT
   long long n8;
   long long n_nodes;
-};
-
-// C[0..3], read once a lane and kept in registers
-struct Cs {
-  long long c0, c1, c2, c3;
-  __device__ __forceinline__ long long operator[](int c) const {
-    return c < 2 ? (c == 0 ? c0 : c1) : (c == 2 ? c2 : c3);
-  }
 };
 
 struct Grids {
@@ -66,18 +63,6 @@ struct Lane {
   long long lo, hi, x;
   int ks, lastfail;
 };
-
-// rank_c(i) of rank24 (ops/rank24.py rank24): one load, of entry c * n8 + i / 8
-template <bool WIDE>
-__device__ __forceinline__ uint32_t rank24(const int32_t* tab, long long base, long long i) {
-  const uint32_t mask = (1u << (i & 7)) - 1u;
-  if (WIDE) {
-    const int2 e = __ldg(reinterpret_cast<const int2*>(tab) + base + (i >> 3));
-    return static_cast<uint32_t>(e.x) + __popc(static_cast<uint32_t>(e.y) & mask);
-  }
-  const uint32_t e = static_cast<uint32_t>(__ldg(tab + base + (i >> 3)));
-  return (e >> 8) + __popc(e & mask);
-}
 
 // one position j of one lane: the plain loop's step, value for value
 template <bool AUG, bool WIDE>
@@ -121,7 +106,7 @@ chain_opt_kernel(const uint8_t* __restrict__ codes, int B, int L, int k, Tables 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t row = static_cast<size_t>(b) * L;
-  const Cs C{__ldg(t.C), __ldg(t.C + 1), __ldg(t.C + 2), __ldg(t.C + 3)};
+  const Cs C = Cs::load(t.C);
   Lane s{0, t.n_nodes - 1, -1, 0, -(k + 2)};
   uint32_t next = __ldg(codes + row);
   for (int j = 0; j < L; ++j) {

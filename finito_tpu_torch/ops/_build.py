@@ -3,8 +3,8 @@ library, bound with ctypes).
 
 The library is compiled on first use, for sm_90a, into
 ``build/finito_tpu_torch/<hash>/`` at the root of the checkout, keyed by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the cached library. A missing nvcc or a failed
+a hash of the sources, their header and the flags, so an edited source
+rebuilds and an unchanged one loads the cached library. A missing nvcc or a failed
 build raises: there is no fallback to the plain PyTorch versions.
 """
 
@@ -21,7 +21,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = [_PKG / "csrc" / "minimizer_front.cu", _PKG / "csrc" / "chain_opt.cu"]
+_SOURCES = [_PKG / "csrc" / "minimizer_front.cu", _PKG / "csrc" / "chain_opt.cu",
+            _PKG / "csrc" / "segment_repair.cu"]
+_HEADERS = [_PKG / "csrc" / "rank24.cuh"]
 BUILD_ROOT = _PKG.parent / "build" / "finito_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +49,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -82,6 +84,9 @@ def library() -> ctypes.CDLL:
         lib.fin_minimizer_windows.restype = ci
         lib.fin_chain_opt.argtypes = [vp, ll, ll, ci, vp, ci, ll, vp, vp, ll, ci, vp, vp, vp, vp]
         lib.fin_chain_opt.restype = ci
+        lib.fin_segment_repair.argtypes = [vp, ll, vp, vp, vp, ll, ll, ci, ci, vp, ci, ll, vp, vp,
+                                           vp, vp, vp, ll, ci, vp, vp, vp]
+        lib.fin_segment_repair.restype = ci
         build_info["path"] = str(path)
         _lib = lib
         return lib

@@ -2,7 +2,7 @@
 port: counterpart of finito_tpu/ops/streaming.py (compact_mask, the
 chunking helpers, make_chain_scan, make_chain_opt, make_segment_repair's
 default path and make_chain_stream_ranks), in plain torch but for the
-chain's kernel.
+kernels of the chain and the repair.
 
 Phase A -- the optimistic chain scan (make_chain_opt): a hybrid
 automaton per lane; on the card one launch of csrc/chain_opt.cu (a
@@ -16,11 +16,13 @@ Phase B -- the segment repair (make_segment_repair): untrusted runs are
 compacted to one lane each (split every Q payload positions), seeded
 from the trusted predecessor's post-close slide state where possible,
 and walked once with the reference's exact recovery state machine
-(plateau-jump drops and LCS-widening hops): a fixed number of trips,
-then straggler trips while any lane is still active. Each straggler
-check is one device-to-host read (straggler_pending; utils.trace counts
-them as host_reads.straggler and the trips as trips.repair_fixed and
-trips.straggler).
+(plateau-jump drops and LCS-widening hops). On the card one launch of
+csrc/segment_repair.cu walks each lane to its end (utils.trace counts
+`repair.kernel`). On the CPU (make_segment_repair_ref) a fixed number of
+Python trips, then straggler trips while any lane is still active, each
+straggler check one device-to-host read (straggler_pending; utils.trace
+counts them as host_reads.straggler and the trips as trips.repair_fixed
+and trips.straggler).
 
 Output equals ops.bitvec.kmer_ranks_fixed exactly (tested).
 """
@@ -300,12 +302,33 @@ def straggler_pending(active: torch.Tensor) -> bool:
     return trace.host_read("straggler", lambda: bool(active.any()))
 
 
-def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None = None,
-                        aug: bool = False):
+def _split_segments(untrusted: torch.Tensor, Q: int, K_seg: int):
+    """The repair's segments: untrusted runs split every Q positions.
+    Returns (is_start, the (B, L) run starts; seg_idx, the first K_seg
+    split positions of the flattened grid, ascending, -1 past the count;
+    n_seg, the true count as a () int32 device tensor)."""
+    B, L = untrusted.shape
+    u = untrusted
+    dev = u.device
+    prev = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev), u[:, :-1]], dim=1)
+    is_start = u & ~prev
+    jpos = torch.arange(L, device=dev)[None, :].expand(B, L)
+    # run starts are increasing within a read, so a running max
+    # propagates each run's start over the run; split every Q positions
+    rs = torch.cummax(torch.where(is_start, jpos, -1), dim=1).values
+    split = u & ((jpos - rs) % Q == 0)
+    seg_idx, n_seg = compact_mask(split, K_seg)
+    return is_start, seg_idx, n_seg
+
+
+def make_segment_repair_ref(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None = None,
+                            aug: bool = False):
     """Exact repair of untrusted runs with the reference's recovery
     state machine (drop_first_char widening, ref common.hh:116-127): the
-    default path of the JAX make_segment_repair (one mixed loop, two hop
-    rounds a trip).
+    plain version of make_segment_repair, on any device (make_segment_repair
+    runs it for CPU tensors; chip_smoke.py holds the kernel to it on the
+    card), and the default path of the JAX make_segment_repair (one mixed
+    loop, two hop rounds a trip).
 
       * a run-start segment at p_start >= k is seeded from its trusted
         found predecessor's post-close slide (ks = p_start-k+1, interval
@@ -341,15 +364,7 @@ def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None
         u = untrusted
         # bit 8 of the packed stream = untrusted flag at that position
         pk = codes.reshape(-1).to(torch.int64) | (u.reshape(-1).to(torch.int64) << 8)
-        prev = torch.cat([torch.zeros((B, 1), dtype=torch.bool, device=dev), u[:, :-1]], dim=1)
-        is_start = u & ~prev
-        jpos = torch.arange(L, device=dev)[None, :].expand(B, L)
-        # run starts are increasing within a read, so a running max
-        # propagates each run's start over the run; split every Q positions
-        rs = torch.cummax(torch.where(is_start, jpos, -1), dim=1).values
-        split = u & ((jpos - rs) % Q == 0)
-        seg_idx, n_seg = compact_mask(split, K_seg)
-
+        is_start, seg_idx, n_seg = _split_segments(u, Q, K_seg)
         sv = seg_idx >= 0
         f_start = torch.where(sv, seg_idx, 0).to(torch.int64)
         b_of = f_start // L
@@ -464,6 +479,96 @@ def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None
         return put(emit, buf_e), put(cand, buf_c), n_seg
 
     return run
+
+
+_repair_kernel = None  # the ctypes function, loaded on the first launch
+
+
+def make_segment_repair(n8: int, k: int, n_nodes: int, K_seg: int, Q: int | None = None,
+                        aug: bool = False):
+    """The segment repair (make_segment_repair_ref's contract and
+    outputs): run(tab, C, ck, jl, jr, suu, codes, emit, cand, untrusted)
+    -> (emit2, cand2, n_seg). The plain version's trip loop for a CPU
+    tensor; for a CUDA tensor the split mask's compaction in torch and
+    one launch of the hand-written kernel (csrc/segment_repair.cu), which
+    walks every lane to its end (no trips, no host read), or an error.
+    Its rank24 form (flat or wide) follows tab.dim() and its cand form
+    follows `aug`. The kernel takes codes as a contiguous (B, L) uint8
+    tensor with B * L < 2^31, the grids as (B, L) int32 and bool, and
+    tab, C, ck, jl, jr (and suu with `aug`) as contiguous int32 tensors
+    (ops.bits.put_i32) on the same card; emit2 and cand2 are new
+    tensors, the inputs stay unchanged. ``make_segment_repair.launches``
+    counts kernel launches, as does utils.trace's `repair.kernel`."""
+    if Q is None:
+        Q = k + 1
+    plain = make_segment_repair_ref(n8, k, n_nodes, K_seg, Q, aug)
+
+    def run(tab, C, ck, jl, jr, suu, codes, emit, cand, untrusted):
+        if codes.device.type == "cpu":
+            return plain(tab, C, ck, jl, jr, suu, codes, emit, cand, untrusted)
+        if codes.device.type != "cuda":
+            raise ValueError(f"make_segment_repair: unsupported device {codes.device}")
+        with trace.span("segment_repair"):
+            return _segment_repair_kernel(n8, k, n_nodes, K_seg, Q, aug, tab, C, ck, jl, jr,
+                                          suu, codes, emit, cand, untrusted)
+
+    return run
+
+
+make_segment_repair.launches = 0
+
+
+def _segment_repair_kernel(n8, k, n_nodes, K_seg, Q, aug, tab, C, ck, jl, jr, suu, codes, emit,
+                           cand, untrusted):
+    """The split compaction, then one launch of csrc/segment_repair.cu
+    into copies of the chain's grids."""
+    global _repair_kernel
+    dev = codes.device
+    B, L = codes.shape
+    if codes.dtype != torch.uint8 or codes.dim() != 2 or not codes.is_contiguous():
+        raise ValueError("make_segment_repair: codes must be a contiguous (B, L) uint8 tensor")
+    for name, t, dtype in (("emit", emit, torch.int32), ("cand", cand, torch.int32),
+                           ("untrusted", untrusted, torch.bool)):
+        if t.device != dev or t.dtype != dtype or t.shape != codes.shape:
+            raise ValueError(f"make_segment_repair: {name} must be a (B, L) {dtype} tensor on {dev}")
+    tables = (("tab", tab), ("C", C), ("ck", ck), ("jl", jl), ("jr", jr))
+    for name, t in tables + ((("suu", suu),) if aug else ()):
+        if t is None or t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"make_segment_repair: {name} must be a contiguous int32 tensor on {dev}")
+    wide = tab.dim() == 2
+    if (tab.dim() not in (1, 2) or (wide and tab.shape[1] != 2) or tab.shape[0] < 4 * n8
+            or n8 < 1 or C.numel() < 4 or tuple(ck.shape) != (n_nodes, 2)
+            or jl.numel() < n_nodes or jr.numel() < n_nodes + 1
+            or (aug and suu.numel() < n_nodes) or n_nodes < 1):
+        raise ValueError(f"make_segment_repair: tables {tuple(tab.shape)}, {tuple(ck.shape)}, "
+                         f"{tuple(jl.shape)}, {tuple(jr.shape)} do not hold n8={n8}, "
+                         f"n_nodes={n_nodes}")
+    if B * L >= 1 << 31:
+        raise ValueError(f"make_segment_repair: B * L = {B * L} reaches 2^31 (32-bit indexing)")
+    untrusted, emit_in = untrusted.contiguous(), emit.contiguous()
+    _, seg_idx, n_seg = _split_segments(untrusted, Q, K_seg)
+    emit2 = emit.clone(memory_format=torch.contiguous_format)
+    cand2 = cand.clone(memory_format=torch.contiguous_format)
+    if B * L == 0 or K_seg == 0:
+        return emit2, cand2, n_seg
+    if _repair_kernel is None:
+        from finito_tpu_torch.ops import _build
+
+        _repair_kernel = _build.library().fin_segment_repair
+    args = (seg_idx.data_ptr(), K_seg, codes.data_ptr(), untrusted.data_ptr(),
+            emit_in.data_ptr(), B, L, k, Q, tab.data_ptr(), int(wide), n8, C.data_ptr(),
+            ck.data_ptr(), jl.data_ptr(), jr.data_ptr(), suu.data_ptr() if aug else None,
+            n_nodes, int(aug), emit2.data_ptr(), cand2.data_ptr())
+    if dev.index == torch.cuda.current_device():
+        rc = _repair_kernel(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = _repair_kernel(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_repair kernel launch failed: CUDA error {rc}")
+    make_segment_repair.launches += 1
+    trace.count("repair.kernel")
+    return emit2, cand2, n_seg
 
 
 def make_chain_stream_ranks(n8: int, k: int, n_nodes: int, K: int, chunk: int | None = None):

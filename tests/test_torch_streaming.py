@@ -4,10 +4,11 @@ package's: the chunking helpers, make_chain_opt (both edge forms, all
 three outputs), make_segment_repair (emit, cand and n_seg, also past its
 capacity) and make_chain_stream_ranks (unchunked and chunked, also
 against kmer_ranks_fixed), on mutation-heavy reads, the JAX tables fed
-straight into the port. Every comparison is exact. The chain's CUDA
-kernel (csrc/chain_opt.cu) is held bit for bit to the plain version on
-a card (the `cuda` marker); here, that a CPU tensor takes the plain
-version and another device raises."""
+straight into the port. Every comparison is exact. The CUDA kernels of
+the chain (csrc/chain_opt.cu) and of the repair (csrc/segment_repair.cu)
+are held bit for bit to their plain versions on a card (the `cuda`
+marker); here, that a CPU tensor takes the plain version and another
+device raises."""
 
 from __future__ import annotations
 
@@ -266,6 +267,117 @@ def test_segment_repair_equals_jax(fixture, aug, room):
     for a, b in zip(got, want):
         _equal(a, b)
     assert (int(got[2]) > K) == (room == "overflow")
+
+
+def _repair_tables(fixture, form, device):
+    """(tab, C, ck, jl, jr, suu) in the repair's argument order, tab in the
+    given rank24 form."""
+    _, _, _, _, tables, _ = fixture
+    tab = tables["tab"] if form == "flat" else _wide(tables["tab"])
+    return [put_i32(a, device) for a in (tab, *(tables[n] for n in ("C", "ck", "jl", "jr", "suu")))]
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_segment_repair_cpu_takes_plain_version(fixture, aug):
+    """A CPU tensor runs the plain trip loop: outputs equal to
+    make_segment_repair_ref's, its trips and straggler reads counted, no
+    launch, inputs unchanged."""
+    k, n8, n_nodes, reads, _, _ = fixture
+    codes = torch.from_numpy(_edge_rows(reads, k))
+    grids = pst.make_chain_opt_ref(n8, k, n_nodes, aug=aug)(
+        *_chain_tables(fixture, aug, "flat", "cpu"), codes)
+    kept = [g.clone() for g in grids]
+    tabs = _repair_tables(fixture, "flat", "cpu")
+    launches, counted = pst.make_segment_repair.launches, trace.counts.get("repair.kernel", 0)
+    stragglers = trace.counts.get("host_reads.straggler", 0)
+    got = pst.make_segment_repair(n8, k, n_nodes, B * L, aug=aug)(*tabs, codes, *grids)
+    assert pst.make_segment_repair.launches == launches == 0
+    assert trace.counts.get("repair.kernel", 0) == counted
+    assert trace.counts.get("host_reads.straggler", 0) > stragglers
+    for a, b in zip(grids, kept):
+        assert torch.equal(a, b)
+    want = pst.make_segment_repair_ref(n8, k, n_nodes, B * L, aug=aug)(*tabs, codes, *grids)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("aug", [False, True])
+def test_segment_repair_wide_table_equals_flat(fixture, aug):
+    """The plain repair reads both rank24 forms alike: the wide rows the
+    kernel is held to on the card are the same index."""
+    k, n8, n_nodes, reads, _, _ = fixture
+    codes = torch.from_numpy(_edge_rows(reads, k))
+    grids = pst.make_chain_opt_ref(n8, k, n_nodes, aug=aug)(
+        *_chain_tables(fixture, aug, "flat", "cpu"), codes)
+    repair = pst.make_segment_repair(n8, k, n_nodes, B * L, aug=aug)
+    flat = repair(*_repair_tables(fixture, "flat", "cpu"), codes, *grids)
+    wide_tabs = _repair_tables(fixture, "wide", "cpu")
+    assert wide_tabs[0].dim() == 2
+    for a, b in zip(repair(*wide_tabs, codes, *grids), flat):
+        assert torch.equal(a, b)
+
+
+def test_segment_repair_rejects_other_devices(fixture):
+    k, n8, n_nodes, _, _, _ = fixture
+    meta = [torch.zeros(4 * n8 + 8, dtype=torch.int32, device="meta")] * 6
+    grid = torch.zeros((2, 40), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        pst.make_segment_repair(n8, k, n_nodes, 16)(
+            *meta, grid.to(torch.uint8), grid, grid, grid.to(torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["reads", "full", "clean", "empty"])
+@pytest.mark.parametrize("room", ["enough", "overflow"])
+@pytest.mark.parametrize("form", ["flat", "wide"])
+@pytest.mark.parametrize("aug", [False, True])
+def test_repair_kernel_matches_plain_on_card(fixture, aug, form, room, case):
+    """The repair kernel's emit2, cand2 and n_seg equal the plain trip
+    loop's (make_segment_repair_ref) bit for bit on the card, for both
+    cand forms and both rank24 forms, with room for every segment and
+    with K_seg = 5 below n_seg: the chain's grids of the fixture's
+    mutated reads with N codes, short and all-pad rows ("reads"); one
+    (8192, 256) batch of text rows with substitutions, N codes and
+    padding, a CLI chunk's shape ("full"); the reads' grids with no
+    untrusted position ("clean"); B = 0 ("empty"). One launch a call
+    (none for B = 0), no straggler read, the inputs unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    k, n8, n_nodes, reads, _, index = fixture
+    codes = {
+        "reads": lambda: torch.from_numpy(_edge_rows(reads, k)),
+        "full": lambda: torch.from_numpy(_text_rows(index, 8192, 256, k)),
+        "clean": lambda: torch.from_numpy(_edge_rows(reads, k)),
+        "empty": lambda: torch.zeros((0, L), dtype=torch.uint8),
+    }[case]().cuda()
+    grids = list(pst.make_chain_opt(n8, k, n_nodes, aug=aug)(
+        *_chain_tables(fixture, aug, form, "cuda"), codes))
+    if case == "clean":
+        grids[2] = torch.zeros_like(grids[2])
+    kept = [g.clone() for g in grids]
+    tabs = _repair_tables(fixture, form, "cuda")
+    K = max(1, codes.numel()) if room == "enough" else 5
+    launches, counted = pst.make_segment_repair.launches, trace.counts.get("repair.kernel", 0)
+    stragglers = trace.counts.get("host_reads.straggler", 0)
+    got = pst.make_segment_repair(n8, k, n_nodes, K, aug=aug)(*tabs, codes, *grids)
+    torch.cuda.synchronize()
+    n = int(codes.numel() > 0)
+    assert pst.make_segment_repair.launches == launches + n
+    assert trace.counts.get("repair.kernel", 0) == counted + n
+    assert trace.counts.get("host_reads.straggler", 0) == stragglers
+    assert [g.dtype for g in got] == [torch.int32, torch.int32, torch.int32]
+    for a, b in zip(grids, kept):
+        assert torch.equal(a, b)
+    if case == "empty":
+        assert got[0].shape == got[1].shape == (0, L) and int(got[2]) == 0
+        return
+    want = pst.make_segment_repair_ref(n8, k, n_nodes, K, aug=aug)(*tabs, codes, *grids)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+    if case == "clean":
+        assert int(got[2]) == 0 and torch.equal(got[0], grids[0])
+    else:
+        assert (int(got[2]) > K) == (room == "overflow") and not torch.equal(got[0], grids[0])
 
 
 @pytest.mark.parametrize("chunk", [None, 6, 9, 39])

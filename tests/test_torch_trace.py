@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from finito_tpu_torch import cli
@@ -72,13 +73,13 @@ def cell():
     return index, text, _reads(text, CHUNK + 60, 60, 0.01, 16, n_every=50)
 
 
-def _engine(index, key):
+def _engine(index, key, device="cpu"):
     mode, v2 = ENGINES[key]
     old = os.environ.get("FINITO_MINIMIZER_V2")
     if v2 is not None:
         os.environ["FINITO_MINIMIZER_V2"] = v2
     try:
-        return DeviceQueryEngine(index, mode=mode, device="cpu")
+        return DeviceQueryEngine(index, mode=mode, device=device)
     finally:
         if old is None:
             os.environ.pop("FINITO_MINIMIZER_V2", None)
@@ -171,6 +172,33 @@ def test_host_reads_per_chunk(served, key):
     assert reads == want
     assert "capacity_reruns" not in counts and "host_merges" not in counts
     assert counts["runs"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["stream", "replica"])
+def test_card_path_counts_repair_kernel(served, cell, tmp_path, key):
+    """On the card the repair is one kernel launch a chunk and capacity
+    re-run: `repair.kernel` counts them, under the `segment_repair` span,
+    with no repair trip and no straggler read; two calls (the first
+    settles the capacities) give the CPU engine's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the repair kernel has no CPU mode)")
+    index, _, records = cell
+    engine = _engine(index, key, device="cuda")
+    (want, want_stats, _, _), _ = served(key)
+    for _ in range(2):
+        out, stats, counts, ms = _serve(engine, index, records, str(tmp_path))
+        assert out == want and stats == want_stats
+        # one locate a chunk and re-run, each read back once by verify()
+        reads = {n[len("host_reads."):]: c for n, c in counts.items()
+                 if n.startswith("host_reads.")}
+        assert reads == {"verify": counts["repair.kernel"], "stats": counts["chunks"],
+                         "runs": counts["chunks"]}
+        assert counts["repair.kernel"] == counts["chain.kernel"] >= (
+            counts["chunks"] + counts.get("capacity_reruns", 0))
+        assert not any(n.startswith("trips.") for n in counts)
+        assert "segment_repair" in ms and not {"segment_repair.fixed",
+                                               "segment_repair.straggler"} & set(ms)
 
 
 @pytest.mark.parametrize("key", ["v2", "stream"])
