@@ -143,6 +143,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -543,67 +544,44 @@ def forms_picked(module):
     """Records the locate form (True for v2) that module.pick_v2 returns
     while the block runs."""
     picked, pick = [], module.pick_v2
-
-    def spy(dmi):
-        picked.append(pick(dmi))
-        return picked[-1]
-
-    module.pick_v2 = spy
-    try:
+    with mock.patch.object(module, "pick_v2", lambda dmi: picked.append(pick(dmi)) or picked[-1]):
         yield picked
-    finally:
-        module.pick_v2 = pick
-
-
-def settle(dmi, codes, v2: bool, count: bool):
-    """One locate form at the capacities its caller's rule settles on
-    (the engine's; kmer-mapper's slow divisors for the counting forms).
-    Returns (locate, outputs, counters)."""
-    from finito_tpu_torch.query.minimizer_engine import (
-        make_minimizer_locate,
-        make_minimizer_locate_v2,
-    )
-    from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
-
-    B, L = codes.shape
-    BW = B * (L - K + 1)
-    K_slow, K_heads = initial_capacities(BW, v2, ((128 if v2 else 16) if count else None))
-    while True:
-        locate = (make_minimizer_locate_v2(dmi, K_slow, K_heads, count_occurrences=count) if v2
-                  else make_minimizer_locate(dmi, K_slow, count_occurrences=count))
-        out = locate(codes)
-        n_slow, n_heads = int(out[2]), (int(out[3]) if v2 else 0)
-        grown = grow_capacities(K_slow, K_heads, n_slow, n_heads, BW)
-        if grown is None:
-            return locate, out, {"n_slow": n_slow, "K_slow": K_slow,
-                                 **({"n_heads": n_heads, "K_heads": K_heads} if v2 else {})}
-        K_slow, K_heads = grown
 
 
 def locate_forms(index, codes_both: np.ndarray) -> dict:
     """v1, v2 and both counting forms on one (8192, 128) CLI chunk on the
-    card: equal answers, ms per batch (CUDA events), counters."""
+    card: equal answers, ms per batch (CUDA events), counters, each at
+    the capacities query.locators' minimizer policy settles on (the
+    engine's; kmer-mapper's slow divisors for the counting forms)."""
     import torch
 
     from finito_tpu_torch.query.engine import DeviceQueryEngine, _pad_codes
+    from finito_tpu_torch.query.locators import Optimistic, minimizer_policy
+    from finito_tpu_torch.query.minimizer_engine import make_minimizer_locate_form
 
     torch.cuda.reset_peak_memory_stats()
     eng = DeviceQueryEngine(index, device=DEVICE)
-    codes = eng._to_device(_pad_codes(codes_both))
+    codes = torch.from_numpy(_pad_codes(codes_both)).to(eng.device)
     B, L = codes.shape
     res = {"windows": B * (L - K + 1), "slot_rows": eng._dmi.slot_rows is not None,
            "engine_form": "v2" if eng.use_v2 else "v1"}
     outs = {}
     for name, v2, count in (("v1", False, False), ("v2", True, False),
                             ("v1-count", False, True), ("v2-count", True, True)):
-        locate, out, counters = settle(eng._dmi, codes, v2, count)
-        outs[name] = out
-        res[name] = {"ms": time_cuda(lambda: locate(codes), reps=20, warmup=3), **counters}
+        check = Optimistic(
+            lambda caps: make_minimizer_locate_form(eng._dmi, v2, *caps, count_occurrences=count)(
+                codes), *minimizer_policy(B, L, K, v2, (128 if v2 else 16) if count else None))
+        check.verify()
+        locate = make_minimizer_locate_form(eng._dmi, v2, *check.caps, count_occurrences=count)
+        outs[name] = check.out
+        res[name] = {"ms": time_cuda(lambda: locate(codes), reps=20, warmup=3),
+                     **dict(zip(("n_slow", "n_heads")[: 1 + v2], check.counters)),
+                     **dict(zip(("K_slow", "K_heads")[: 1 + v2], check.caps))}
     uid, off = outs["v1"][:2]
     for name in ("v2", "v1-count", "v2-count"):
         if not (torch.equal(outs[name][0], uid) and torch.equal(outs[name][1], off)):
             raise AssertionError(f"locate {name} disagrees with v1 on (uid, off)")
-    cnt1, cnt2 = outs["v1-count"][3], outs["v2-count"][4]
+    cnt1, cnt2 = outs["v1-count"][3], outs["v2-count"][3]
     if not torch.equal(cnt1, cnt2):
         raise AssertionError("the counting forms of v1 and v2 disagree on cnt")
     if not torch.equal(cnt1, (uid >= 0).to(torch.int32)):
@@ -620,10 +598,9 @@ def engines_built(module):
     share of the LCS jump tables' two Python stack loops."""
     import torch
 
-    from finito_tpu_torch.ops import rank24
     from finito_tpu_torch.query import replica
 
-    built, init, jumps = [], module.DeviceQueryEngine.__init__, rank24.build_lcs_jump_tables
+    built, init, jumps = [], module.DeviceQueryEngine.__init__, replica.build_lcs_jump_tables
     in_jumps = []
 
     def timed_jumps(LCS):
@@ -639,13 +616,9 @@ def engines_built(module):
         torch.cuda.synchronize()
         built.append((self, time.perf_counter() - t0, sum(in_jumps)))
 
-    module.DeviceQueryEngine.__init__ = spy
-    rank24.build_lcs_jump_tables = replica.build_lcs_jump_tables = timed_jumps
-    try:
+    with mock.patch.object(module.DeviceQueryEngine, "__init__", spy), \
+            mock.patch.object(replica, "build_lcs_jump_tables", timed_jumps):
         yield built
-    finally:
-        module.DeviceQueryEngine.__init__ = init
-        rank24.build_lcs_jump_tables = replica.build_lcs_jump_tables = jumps
 
 
 def phase_profile(fn, phases) -> dict:
@@ -688,10 +661,10 @@ def phase_profile(fn, phases) -> dict:
 # range that names it
 PHASES = {
     "dense": [("kmer_ranks_fixed", "finito_tpu_torch/ops/bitvec.py:kmer_ranks_fixed"),
-              ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
+              ("ranks_to_locations", "finito_tpu_torch/query/locators.py:_ranks_to_locations")],
     "stream": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
                ("segment_repair", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
-               ("ranks_to_locations", "finito_tpu_torch/query/engine.py:_ranks_to_locations")],
+               ("ranks_to_locations", "finito_tpu_torch/query/locators.py:_ranks_to_locations")],
     "replica": [("chain_opt", "finito_tpu_torch/ops/streaming.py:make_chain_opt"),
                 ("segment_repair", "finito_tpu_torch/ops/streaming.py:make_segment_repair"),
                 ("replica_tail", "finito_tpu_torch/query/replica.py:resolve_windows")],
@@ -769,6 +742,7 @@ def repair_kernel_check(mode: str, chain_tables, tables, codes, n8: int, k: int,
     import torch
 
     from finito_tpu_torch.ops import streaming
+    from finito_tpu_torch.query.locators import Optimistic, segment_policy
     from finito_tpu_torch.utils import trace
 
     chain = streaming.make_chain_opt(n8, k, n_nodes, aug=aug)
@@ -781,12 +755,12 @@ def repair_kernel_check(mode: str, chain_tables, tables, codes, n8: int, k: int,
     for B, L in CHAIN_SHAPES:
         c = {128: codes, 256: wide}[L][:B].contiguous()
         grids = chain(*chain_tables, c)
-        W = L - k + 1
-        stream = mode == "stream"
-        K, cap = max(1024, B * W // (64 if stream else 16)), (B * W if stream else B * L)
-        n_seg = int(streaming._split_segments(grids[2], Q, 1)[2])
-        while K < n_seg:
-            K = min(cap, 4 * K)
+        # the engine's K: its policy's, grown by the loop over this n_seg
+        counted = streaming._split_segments(grids[2], Q, 1)[2]
+        check = Optimistic(lambda caps: (None, None, counted),
+                           *segment_policy(B, L, k, stream=mode == "stream"))
+        check.verify()
+        (K,), (n_seg,) = check.caps, check.counters
         repair = streaming.make_segment_repair(n8, k, n_nodes, K, aug=aug)
         plain = streaming.make_segment_repair_ref(n8, k, n_nodes, K, aug=aug)
         n0 = streaming.make_segment_repair.launches
@@ -833,21 +807,23 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
 
     from finito_tpu_torch.ops import streaming
     from finito_tpu_torch.ops.bitvec import kmer_ranks_fixed
-    from finito_tpu_torch.query.engine import _pad_codes, _ranks_to_locations
+    from finito_tpu_torch.query.engine import _pad_codes
+    from finito_tpu_torch.query.locators import _ranks_to_locations
     from finito_tpu_torch.query.replica import resolve_windows
 
-    codes = eng._to_device(_pad_codes(codes_both))
+    codes = torch.from_numpy(_pad_codes(codes_both)).to(eng.device)
     B, L = codes.shape
+    loc = eng.locator
 
     def locate():
-        uid, off, verify = eng._locate_async(codes)
+        uid, off, verify = loc.dispatch(codes)
         if verify is None:
             return uid, off
         if verify() is not None:
             raise AssertionError("the segment capacity overflowed at the memo's K")
         return uid, off
 
-    verify = eng._locate_async(codes)[2]
+    verify = loc.dispatch(codes)[2]
     if verify is not None:
         verify()  # settles K for this shape (the CLI run's chunks already did)
     r0, s0 = host_reads(), host_reads("straggler")
@@ -856,8 +832,8 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
     res = {"B": B, "L": L, "host_reads": host_reads() - r0,
            "straggler_reads": host_reads("straggler") - s0}
     if eng.mode != "dense":
-        K = eng._sizes[(B, L)]
-        res.update(K=K, n_seg=int(eng._segment_locate(K)(codes)[2]))
+        caps = loc.sizes[(B, L)]
+        res.update(K=caps[0], n_seg=int(loc.locate_at(caps)(codes)[2]))
     res["ms"] = [time_cuda(locate, reps=5, warmup=1) for _ in range(2)]
     prof = phase_profile(locate, [name for name, _ in PHASES[eng.mode]])
     res["device_ms"], res["launches"] = prof["all"]["device_ms"], prof["all"]["launches"]
@@ -866,17 +842,12 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
     k = eng.k
     alone = {}
     if eng.mode == "dense":
-        ranks = kmer_ranks_fixed(eng.dsbwt, codes, k)
-        alone["kmer_ranks_fixed"] = time_cuda(lambda: kmer_ranks_fixed(eng.dsbwt, codes, k), 5, 1)
+        ranks = kmer_ranks_fixed(loc.dsbwt, codes, k)
+        alone["kmer_ranks_fixed"] = time_cuda(lambda: kmer_ranks_fixed(loc.dsbwt, codes, k), 5, 1)
     else:
-        if eng.mode == "stream":
-            tab, C, ck, jl, jr, edge = eng._stream_tables
-            n8, n_nodes, suu, aug = eng._n8, eng.dsbwt.n_nodes, None, False
-        else:
-            P = eng._replica_tables
-            tab, C, ck, jl, jr, edge, suu = (P[n] for n in ("tab", "C", "ck", "jl", "jr", "edge",
-                                                            "suu"))
-            n8, n_nodes, aug = P["n8"], P["n_nodes"], P["aug"]
+        P = loc.tables
+        tab, C, ck, jl, jr, edge = (P[n] for n in ("tab", "C", "ck", "jl", "jr", "edge"))
+        suu, n8, n_nodes, aug = P.get("suu"), P["n8"], P["n_nodes"], P["aug"]
         res["chain_kernel"] = chain_kernel_check(eng.mode, (tab, C, edge), codes, n8, k, n_nodes,
                                                  aug)
         res["repair_kernel"] = repair_kernel_check(eng.mode, (tab, C, edge),
@@ -893,7 +864,7 @@ def engine_batch(eng, codes_both: np.ndarray) -> dict:
         if eng.mode == "replica":
             alone["replica_tail"] = time_cuda(lambda: resolve_windows(P, emit, cand, 0), 5, 1)
     if eng.mode != "replica":
-        alone["ranks_to_locations"] = time_cuda(lambda: _ranks_to_locations(eng.loc_table, ranks),
+        alone["ranks_to_locations"] = time_cuda(lambda: _ranks_to_locations(loc.loc_table, ranks),
                                                 5, 1)
     res["phases"] = []
     for name, where in PHASES[eng.mode]:
@@ -1047,22 +1018,6 @@ def front_recorded():
         minimizer_engine.minimizer_windows = minimizer_windows
 
 
-@contextlib.contextmanager
-def pipeline_v2_forced():
-    """make_device_pipeline builds the v2 locate at its own capacities
-    whatever the descriptor's size while the block runs: its size
-    threshold (V2_MIN_DESC_BYTES) is 0. The pipeline, as JAX's, takes no
-    variable for it."""
-    from finito_tpu_torch.query import engine
-
-    threshold = engine.V2_MIN_DESC_BYTES
-    engine.V2_MIN_DESC_BYTES = 0
-    try:
-        yield
-    finally:
-        engine.V2_MIN_DESC_BYTES = threshold
-
-
 def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index,
                   forced: bool = False) -> tuple:
     """bench.py run_rung's protocol (bench.py:236-368) on the port's
@@ -1078,24 +1033,25 @@ def pipeline_cell(eng, info: dict, reads: np.ndarray, reads_dev, expected, index
     (the minimum kept); one call under torch.profiler. The front-end
     kernel's launches are counted from 0 over the whole protocol and held
     bit for bit to the plain version on every input. One JSON line.
-    forced: the minimizer pipeline in the v2 form (pipeline_v2_forced).
+    forced: the minimizer pipeline in the v2 form, its size threshold
+    V2_MIN_DESC_BYTES at 0 (the pipeline, as JAX's, takes no variable).
     Returns (the launches, the checked call's (uid, off) on the card)."""
     import torch
 
     from finito_tpu_torch.io.seqdb import decode_seq
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
-    from finito_tpu_torch.query.engine import v2_by_size
+    from finito_tpu_torch.query import minimizer_engine
 
     mode = eng.mode
     B, L = reads_dev.shape
     W = L - K + 1
-    form = (("v2" if forced or v2_by_size(eng._dmi) else "v1") if mode == "minimizer"
-            else None)
+    form = (("v2" if forced or minimizer_engine.v2_by_size(eng._dmi) else "v1")
+            if mode == "minimizer" else None)
     what = (f"pipeline {mode}{' ' + form if form else ''}{' (forced)' if forced else ''} "
             f"{info['cell']}")
     frac0 = frac = 0.02 if mode in ("stream", "replica") else 0.10
-    with front_recorded() as seen, (pipeline_v2_forced() if forced
-                                    else contextlib.nullcontext()):
+    with front_recorded() as seen, (mock.patch.object(minimizer_engine, "V2_MIN_DESC_BYTES", 0)
+                                    if forced else contextlib.nullcontext()):
         pipe = eng.make_device_pipeline(B, L, unknown_frac=frac)
         out = pipe(reads_dev)
         n, K0 = int(out[2]), pipe.K
@@ -1367,11 +1323,11 @@ def search_phase(genome_len, prefix, qpath, work, check):
     Returns (its kernel launches, the loaded FinimizerIndex)."""
     from finito_tpu_torch import cli
     from finito_tpu_torch.index.index import FinimizerIndex
-    from finito_tpu_torch.query import engine
+    from finito_tpu_torch.query import locators
 
     opath = os.path.join(work, "out.txt")
     seen = []
-    with forms_picked(engine) as picked:
+    with forms_picked(locators) as picked:
         rc, logs, wall, launches = run_counted(
             cli.main, ["search-fmin", "-o", opath, "-i", prefix, "-q", qpath, "--device", DEVICE],
             seen)
@@ -1493,19 +1449,20 @@ def mesh_batch(eng, codes_both: np.ndarray) -> dict:
     """One (8192, 128) CLI chunk through a mesh engine's locate with its
     deferred verify: ms by CUDA events, device time and operations by
     torch.profiler (whole and per record_function range), the front-end
-    launches and host reads of one locate, n_slow against the first K."""
+    launches and host reads of one locate, n_slow against the K its
+    capacity loop settled on."""
     import torch
 
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
     from finito_tpu_torch.query.engine import _pad_codes
 
-    codes = eng._to_device(_pad_codes(codes_both))
+    codes = torch.from_numpy(_pad_codes(codes_both)).to(eng.device)
     B, L = codes.shape
-    K = max(256, B * (L - eng.k + 1) // 32)  # the engine's first capacity
+    loc = eng.locator
     reruns = []
 
     def locate():
-        uid, off, verify = eng._locate_async(codes)
+        uid, off, verify = loc.dispatch(codes)
         reruns.append(verify() is not None)
         return uid, off
 
@@ -1517,7 +1474,7 @@ def mesh_batch(eng, codes_both: np.ndarray) -> dict:
     # the shards' trip-count reads, and the verify's one read of n_slow
     res = {"B": B, "L": L, "host_reads": host_reads() - r0,
            "front_end_launches": minimizer_windows.launches - l0,
-           "K": K, "n_slow": int(eng._mesh_locate(K)(codes)[2])}
+           "K": loc.sizes[(B, L)][0], "n_slow": int(loc.locate_at(loc.sizes[(B, L)])(codes)[2])}
     res["ms"] = [time_cuda(locate, reps=5, warmup=1) for _ in range(2)]
     prof = phase_profile(locate, ["mesh_shards", "mesh_combine"])
     res["device_ms"], res["launches"] = prof["all"]["device_ms"], prof["all"]["launches"]
@@ -1574,7 +1531,7 @@ def mesh_phase(genome_len, prefix, qpath, work, check, index, both) -> dict:
             raise RuntimeError(f"{what} failed:\n{logs}")
         us_io = float(re.findall(r"us/query: (\S+) \(excluding I/O etc\)", logs)[-1])
         log(f"{what} ({n} shards, all on {DEVICE}:0): ShardedMinimizerIndex.build {builds[0]} s "
-            f"(h={eng._sharded.h}), engine {engine_s} s, serving loop wall {wall} s, "
+            f"(h={eng.locator.sharded.h}), engine {engine_s} s, serving loop wall {wall} s, "
             f"{served[0]} queries, us/query {us_io} (excluding I/O), front-end kernel launches "
             f"{n_launch}")
         if n_launch <= 0 or n_launch % n:
@@ -1605,8 +1562,8 @@ def mesh_phase(genome_len, prefix, qpath, work, check, index, both) -> dict:
         batch = mesh_batch(eng, both)
         log(json.dumps({
             "mesh": cfg, "shards": n, "devices": f"{DEVICE}:0 x{n}", "index_bp": genome_len,
-            "sharded_build_s": builds[0], "engine_s": engine_s, "h": eng._sharded.h,
-            "desc_mib_per_shard": eng._sharded.desc[0].nbytes / 2**20,
+            "sharded_build_s": builds[0], "engine_s": engine_s, "h": eng.locator.sharded.h,
+            "desc_mib_per_shard": eng.locator.sharded.desc[0].nbytes / 2**20,
             "serving_wall_s": wall, "queries": served[0], "us_query_wall": wall / served[0] * 1e6,
             "us_query_excl_io": us_io, "front_end_launches": n_launch, "cli_form": cli_form,
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "batch": batch}))
@@ -1725,7 +1682,7 @@ def mesh_index_build_phase(genome_len: int, prefix: str, fna: str, work: str, in
     from finito_tpu_torch.ops.bitvec import DeviceSBWT
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
     from finito_tpu_torch.parallel import mesh, shard_build
-    from finito_tpu_torch.query.engine import build_position_table
+    from finito_tpu_torch.query.locators import build_position_table
     from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
     from finito_tpu_torch.sbwt.lcs import lcs_array
     from finito_tpu_torch.tools import HOST_RSS_SOURCE, host_peak
@@ -1973,18 +1930,6 @@ def dist_phase(genome_len: int, prefix: str, qpath: str, work: str, index) -> No
                     "single_s": single_s, "ranks": ranks}))
 
 
-def mesh_locate_once(fn_for, codes, K_slow: int):
-    """One call of a sharded minimizer locate at capacity K_slow, and
-    again at the reported n_slow when that overflowed (n_slow is the
-    same on every rank). fn_for(K) -> the locate. Returns (uid, off,
-    n_slow, the capacity that answered)."""
-    uid, off, n_slow = fn_for(K_slow)(codes)
-    if int(n_slow) > K_slow:
-        K_slow = int(n_slow)
-        uid, off, n_slow = fn_for(K_slow)(codes)
-    return uid, off, int(n_slow), K_slow
-
-
 def xproc_worker(argv) -> int:
     """One rank of xproc_phase: join the group (gloo: both ranks on
     cuda:0; nccl: cuda:<rank>), hold XPROC_SHARDS shards of a global
@@ -2004,6 +1949,7 @@ def xproc_worker(argv) -> int:
     from finito_tpu_torch.ops.minimizer_front import minimizer_windows
     from finito_tpu_torch.parallel import distributed as dist
     from finito_tpu_torch.parallel import mesh, shard_build
+    from finito_tpu_torch.query.locators import Optimistic, minimizer_policy
 
     pid, nproc, port, backend, prefix, fna, work = argv
     pid, nproc = int(pid), int(nproc)
@@ -2067,12 +2013,9 @@ def xproc_worker(argv) -> int:
         sh = mesh.ShardedMinimizerIndex.build(concat, ends, K, tp=tp)
         tables = mesh.place_minimizer_shards(grid, sh)
         sh_s = time.perf_counter() - t0
-        fns = {}
 
         def fn_for(K_slow):
-            if K_slow not in fns:
-                fns[K_slow] = mesh.sharded_minimizer_locate_fn(grid, sh, K_slow, tables=tables)
-            return fns[K_slow]
+            return mesh.sharded_minimizer_locate_fn(grid, sh, K_slow, tables=tables)
 
         seen = []
 
@@ -2084,7 +2027,11 @@ def xproc_worker(argv) -> int:
         minimizer_windows.launches = 0
         mesh.minimizer_windows = recorded
         try:
-            uid, off, n_slow, K_used = mesh_locate_once(fn_for, codes, max(256, B * (L - K + 1) // 32))
+            # the engine's capacity loop (n_slow is the same on every rank)
+            check = Optimistic(lambda caps: fn_for(caps[0])(codes),
+                               *minimizer_policy(B, L, K, False))
+            check.verify()
+            (uid, off, _), (n_slow,), K_used = check.out, check.counters, check.caps[0]
             torch.cuda.synchronize()
         finally:
             mesh.minimizer_windows = minimizer_windows
@@ -2109,7 +2056,7 @@ def xproc_worker(argv) -> int:
             "staged_bytes_per_step": (grid.flat.stats["staged_bytes"] - b0) / XPROC_STEPS,
             "host_reads_per_step": (host_reads() - r0) / XPROC_STEPS,
             "peak_mib": torch.cuda.max_memory_allocated(card) / 2**20}
-        del grid, sh, tables, fns, seen
+        del grid, sh, tables, seen
         torch.cuda.empty_cache()
 
     # the LCS
@@ -2142,6 +2089,7 @@ def xproc_phase(genome_len: int, prefix: str, work: str, index, both: np.ndarray
     import torch
 
     from finito_tpu_torch.parallel import mesh
+    from finito_tpu_torch.query.locators import Optimistic, minimizer_policy
     from finito_tpu_torch.utils.synth import kmer_location_oracle
 
     concat = np.asarray(index.unitigs.concat, np.uint8)
@@ -2150,9 +2098,10 @@ def xproc_phase(genome_len: int, prefix: str, work: str, index, both: np.ndarray
     B, L = both.shape
     one = mesh.make_mesh(4, tp=4, devices=[DEVICE + ":0"] * 4)
     sh = mesh.ShardedMinimizerIndex.build(concat, ends, K, tp=4)
-    ou, oo, _, _ = mesh_locate_once(lambda K_slow: mesh.sharded_minimizer_locate_fn(one, sh, K_slow),
-                                    both, max(256, B * (L - K + 1) // 32))
-    ou, oo = ou.cpu().numpy(), oo.cpu().numpy()
+    check = Optimistic(lambda caps: mesh.sharded_minimizer_locate_fn(one, sh, caps[0])(both),
+                       *minimizer_policy(B, L, K, False))
+    check.verify()
+    ou, oo = (t.cpu().numpy() for t in check.out[:2])
     if not (np.array_equal(ou, want[0]) and np.array_equal(oo, want[1])):
         raise AssertionError("the one-process (1,4) mesh differs from kmer_location_oracle")
     del one, sh

@@ -109,7 +109,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
         sharded_minimizer_locate_fn,
     )
     from finito_tpu_torch.parallel.shard_build import shard_devices, sharded_index_build
-    from finito_tpu_torch.query.engine import DeviceQueryEngine, build_position_table
+    from finito_tpu_torch.query.engine import DeviceQueryEngine
+    from finito_tpu_torch.query.locators import build_position_table
     from finito_tpu_torch.query.minimizer_engine import DeviceMinimizerIndex, make_minimizer_locate
     from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
     from finito_tpu_torch.sbwt.lcs import lcs_array
@@ -124,7 +125,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
 
     index = _tiny_index()
     engine = DeviceQueryEngine(index, mode="dense", device=dev0)
-    pos = build_position_table(engine.dsbwt, index.unitigs.concat, index.unitigs.ends)
+    dsbwt = engine.locator.dsbwt
+    pos = build_position_table(dsbwt, index.unitigs.concat, index.unitigs.ends)
 
     tp = 2 if n_devices % 2 == 0 else 1
     mesh = make_mesh(n_devices, tp=tp, devices=devs)
@@ -193,7 +195,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
     m = max(dp, (n_pos // dp) * dp)
     wstarts = np.arange(m) % n_pos
     windows = np.stack([tconcat[s : s + k] for s in wstarts]).astype(np.uint8)
-    n = engine.dsbwt.n_nodes
+    n = dsbwt.n_nodes
     table = torch.full((n + 1,), -1, dtype=torch.int32, device=dev0)
     dsbwt_on = {}
     for d, part in zip(devs, np.array_split(np.arange(m), n_devices)):
@@ -202,7 +204,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
         r = search_batch_device(dsbwt_on[d], torch.from_numpy(windows[part]).to(d)).to(dev0)
         table.scatter_reduce_(0, torch.where(r < 0, n, r).to(torch.int64),
                               torch.from_numpy(part.astype(np.int32)).to(dev0), "amax")
-    r1 = search_batch_device(engine.dsbwt, torch.from_numpy(windows).to(dev0)).to(torch.int64)
+    r1 = search_batch_device(dsbwt, torch.from_numpy(windows).to(dev0)).to(torch.int64)
     want = torch.full((n + 1,), -1, dtype=torch.int32, device=dev0)
     want.scatter_reduce_(0, torch.where(r1 < 0, n, r1), torch.arange(m, dtype=torch.int32,
                                                                        device=dev0), "amax")

@@ -12,11 +12,12 @@ k-mer (main.rs:42-61) and writes an FTMIDX02 index (index/minimizer.py);
 extract-index-unitigs also import a Rust KMIDXv01 file one-way
 (io/kmidx.py). The default query runs the port's minimizer locate with
 count_occurrences on ``--device`` (default cuda; cpu runs the plain
-PyTorch versions): one batch per strand, the v1/v2 rule of query.engine,
-the host fwd/RC merge that skips self-RC k-mers, and the reference's
-"occurs in N unitigs" error, exit code 1, whenever a window's total
-occurrence count exceeds 1. --host-exact is the per-window host scan with
-full multi-occurrence detection; it touches no device.
+PyTorch versions): one batch per strand, the engine's v1/v2 rule
+(query.minimizer_engine.pick_v2), the host fwd/RC merge that skips
+self-RC k-mers, and the reference's "occurs in N unitigs" error, exit
+code 1, whenever a window's total occurrence count exceeds 1.
+--host-exact is the per-window host scan with full multi-occurrence
+detection; it touches no device.
 """
 
 from __future__ import annotations
@@ -30,13 +31,12 @@ import numpy as np
 import torch
 
 from finito_tpu_torch.index.minimizer import MinimizerIndex, default_m
-from finito_tpu_torch.query.engine import pick_v2
 from finito_tpu_torch.query.minimizer_engine import (
     DeviceMinimizerIndex,
-    make_minimizer_locate,
-    make_minimizer_locate_v2,
+    make_minimizer_locate_form,
+    pick_v2,
 )
-from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
+from finito_tpu_torch.query.locators import Optimistic, minimizer_policy
 
 
 def _colex_key(kmer: bytes) -> bytes:
@@ -104,22 +104,14 @@ def _device_locate(index: MinimizerIndex, reads: List[bytes], rc: bool, device="
 
     def locate_batch(codes: np.ndarray):
         B, L = codes.shape
-        BW = B * (L - k + 1)
         codes = torch.from_numpy(codes).to(device)
         # 2x the engine's slow headroom: counting scans slots to the end
-        K, KH = initial_capacities(BW, use_v2, slow_divisor=128 if use_v2 else 16)
-        while True:
-            if use_v2:
-                uid, off, n_slow, n_heads, cnt = make_minimizer_locate_v2(
-                    dmi, K, KH, count_occurrences=True)(codes)
-                n_slow, n_heads = torch.stack([n_slow, n_heads]).tolist()
-            else:
-                uid, off, n_slow, cnt = make_minimizer_locate(dmi, K, count_occurrences=True)(codes)
-                n_slow, n_heads = int(n_slow), 0
-            grown = grow_capacities(K, KH, n_slow, n_heads, BW)
-            if grown is None:
-                return uid.cpu().numpy(), off.cpu().numpy(), cnt.cpu().numpy()
-            K, KH = grown
+        check = Optimistic(lambda caps: make_minimizer_locate_form(
+            dmi, use_v2, *caps, count_occurrences=True)(codes),
+            *minimizer_policy(B, L, k, use_v2, slow_divisor=128 if use_v2 else 16))
+        check.verify()
+        uid, off, _, cnt = check.out
+        return uid.cpu().numpy(), off.cpu().numpy(), cnt.cpu().numpy()
 
     answers = []
     batch_idx, batch_codes = [], []

@@ -2,7 +2,8 @@
 port: counterpart of finito_tpu/ops/streaming.py (compact_mask, the
 chunking helpers, make_chain_scan, make_chain_opt, make_segment_repair's
 default path and make_chain_stream_ranks), in plain torch but for the
-kernels of the chain and the repair.
+kernels of the chain and the repair. make_two_phase runs both phases
+for the stream and replica engines.
 
 Phase A -- the optimistic chain scan (make_chain_opt): a hybrid
 automaton per lane; on the card one launch of csrc/chain_opt.cu (a
@@ -571,29 +572,38 @@ def _segment_repair_kernel(n8, k, n_nodes, K_seg, Q, aug, tab, C, ck, jl, jr, su
     return emit2, cand2, n_seg
 
 
+def make_two_phase(n8: int, k: int, n_nodes: int, K_seg: int, aug: bool = False):
+    """The stream and replica engines' scan: run(tab, C, ck, jl, jr, suu,
+    edge, codes, chunk) -> the repaired (B, L) (emit, cand) and n_seg,
+    valid only when n_seg <= K_seg (else the caller re-runs larger). The
+    chain runs over k-1-overlapped chunks (chunk_reads) when k <= chunk
+    < L, with the same output; suu is None unless aug."""
+    chain = make_chain_opt(n8, k, n_nodes, aug=aug)
+    repair = make_segment_repair(n8, k, n_nodes, K_seg, aug=aug)
+
+    def run(tab, C, ck, jl, jr, suu, edge, codes, chunk):
+        B, L = codes.shape
+        if k <= chunk < L:
+            emit, cand, untrusted = (unchunk_grid(g, B, L, k, chunk)
+                                     for g in chain(tab, C, edge, chunk_reads(codes, k, chunk)))
+        else:
+            emit, cand, untrusted = chain(tab, C, edge, codes)
+        return repair(tab, C, ck, jl, jr, suu, codes, emit, cand, untrusted)
+
+    return run
+
+
 def make_chain_stream_ranks(n8: int, k: int, n_nodes: int, K: int, chunk: int | None = None):
     """The two-phase rank pipeline: run(tab, C, contract_k, jl, jr, edge,
-    codes) -> ((B, W) int32 ranks, n_seg). K bounds the number of
-    repaired segments; if n_seg > K the caller must re-run with a larger
-    K (unrepaired windows must never be reported).
-
-    chunk (None = auto_chunk, 0 = whole reads) splits each read into
-    k-1-overlapped chunks scanned as extra lanes (chunk_reads); the
-    output is the same."""
-    chain = make_chain_opt(n8, k, n_nodes, aug=False)
-    repair = make_segment_repair(n8, k, n_nodes, K, aug=False)
+    codes) -> ((B, W) int32 ranks, n_seg), make_two_phase's emit at the
+    window closes, valid only when n_seg <= K. chunk: None = auto_chunk,
+    0 = whole reads."""
+    two_phase = make_two_phase(n8, k, n_nodes, K)
 
     def run(tab, C, contract_k, jl, jr, edge, codes):
         B, L = codes.shape
-        eff = auto_chunk(k, B, L) if chunk is None else chunk
-        if k <= eff < L:
-            emit, cand, untrusted = (
-                unchunk_grid(g, B, L, k, eff)
-                for g in chain(tab, C, edge, chunk_reads(codes, k, eff))
-            )
-        else:
-            emit, cand, untrusted = chain(tab, C, edge, codes)
-        emit, _, n_seg = repair(tab, C, contract_k, jl, jr, None, codes, emit, cand, untrusted)
+        emit, _, n_seg = two_phase(tab, C, contract_k, jl, jr, None, edge, codes,
+                                   auto_chunk(k, B, L) if chunk is None else chunk)
         return emit[:, k - 1 :], n_seg
 
     return run

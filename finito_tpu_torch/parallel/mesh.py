@@ -202,7 +202,7 @@ class ShardedIndex:
     @staticmethod
     def from_index(index, pos_table, tp: int) -> "ShardedIndex":
         """Shard a loaded FinimizerIndex over tp, given its dense
-        per-colex position table (query.engine.build_position_table; a
+        per-colex position table (query.locators.build_position_table; a
         tensor or a numpy array)."""
         if isinstance(pos_table, torch.Tensor):
             pos_table = pos_table.cpu().numpy()

@@ -23,6 +23,8 @@ where jnp.take filled silently.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -40,6 +42,10 @@ from finito_tpu_torch.query.minimizer_tables import (
     pack_text_words,
 )
 from finito_tpu_torch.utils import trace
+
+# v2 from this descriptor size up: the JAX engine's threshold
+# (finito_tpu/query/engine.py), which is also its slot-row cap
+V2_MIN_DESC_BYTES = 64 << 20
 
 # the leaves of the JAX DeviceMinimizerIndex, in its tree_flatten order
 LEAVES = ("desc", "occ_rows", "ends", "text", "text_rows", "slot_rows")
@@ -503,6 +509,37 @@ def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: in
             return uid, off, n_slow, n_heads, cnt.reshape(B, W)
 
     return locate
+
+
+def v2_by_size(dmi: DeviceMinimizerIndex) -> bool:
+    """v2 from a V2_MIN_DESC_BYTES descriptor up: the device-resident
+    pipeline's rule, as in the JAX engine; no variable overrides it."""
+    return dmi.desc.numel() * dmi.desc.element_size() >= V2_MIN_DESC_BYTES
+
+
+def pick_v2(dmi: DeviceMinimizerIndex) -> bool:
+    """Whether the engine's and kmer-mapper's locate takes the v2 form:
+    FINITO_MINIMIZER_V2=0/1 forces it, else v2_by_size."""
+    forced = os.environ.get("FINITO_MINIMIZER_V2")
+    if forced in ("0", "1"):
+        return forced == "1"
+    return v2_by_size(dmi)
+
+
+def make_minimizer_locate_form(dmi: DeviceMinimizerIndex, v2: bool, K_slow: int, K_heads: int,
+                               count_occurrences: bool = False):
+    """The v2 or v1 locate (v1 takes no K_heads) with one return shape:
+    locate(codes) -> (uid, off, counters[, cnt]), counters v1's n_slow or
+    v2's (n_slow, n_heads), as query.locators.Optimistic reads them."""
+    if not v2:
+        return make_minimizer_locate(dmi, K_slow, count_occurrences)
+    locate = make_minimizer_locate_v2(dmi, K_slow, K_heads, count_occurrences)
+
+    def run(codes):
+        out = locate(codes)
+        return (out[0], out[1], out[2:4], *out[4:])
+
+    return run
 
 
 def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):

@@ -28,12 +28,14 @@ def initial_capacities(BW: int, use_v2: bool, slow_divisor: int | None = None):
 def grow_capacities(K: int, KH: int, n_slow: int, n_heads: int, BW: int):
     """Resize policy after a dispatch: None if (K, KH) was sufficient,
     else the next (K, KH) to retry with (K x4, KH doubled or jumped
-    straight to the observed head count). Raises once capacities are
-    already at the B*W ceiling -- overflow there means the counters are
-    wrong, not the sizing."""
+    straight to the observed head count). Raises when a counter exceeds
+    a capacity already at the B*W ceiling -- overflow there means the
+    counters are wrong, not the sizing (the JAX rule waits for both
+    capacities at the ceiling, and grows nothing while v1's K_heads,
+    which no counter fills, stays under it)."""
     if n_slow <= K and n_heads <= KH:
         return None
-    if K >= BW and KH >= BW:
+    if (n_slow > K and K >= BW) or (n_heads > KH and KH >= BW):
         raise AssertionError("slow-path overflow at K == B*W")
     if n_slow > K:
         K = min(BW, K * 4)

@@ -7,10 +7,11 @@ plain torch.
 FinimizerIndex::search (FinimizerIndex.hh:119-185) and
 rarest_fmin_streaming_search (common.hh:78-186) reshaped for a batch:
 
-  * phase A is ops.streaming.make_chain_opt, with (SU, Ustart) of the
-    target node packed into the edge entry (rank24.build_edge_aug_table)
-    when the index allows (n < 2^24, k <= 63);
-  * phase B is ops.streaming.make_segment_repair;
+  * phases A and B are the stream engine's: ops.streaming.make_two_phase
+    (the optimistic chain, then the segment repair) on the tables of
+    two_phase_tables, with (SU, Ustart) of the target node packed into
+    the edge entry (rank24.build_edge_aug_table) when the index allows
+    (n < 2^24, k <= 63); replica_tables adds the tail's tables;
   * the tail (resolve_windows): finimizer candidates in closed form --
     when the interval of the scanned suffix is a singleton {x}, the
     shortest unique suffix ending there has length SU[x] and colex x;
@@ -51,14 +52,7 @@ from finito_tpu_torch.ops.rank24 import (
     update_interval24,
     widen_interval,
 )
-from finito_tpu_torch.ops.streaming import (
-    auto_chunk,
-    chunk_reads,
-    make_chain_opt,
-    make_segment_repair,
-    n_chunks,
-    unchunk_grid,
-)
+from finito_tpu_torch.ops.streaming import auto_chunk, make_two_phase, n_chunks
 from finito_tpu_torch.utils import trace
 
 
@@ -101,34 +95,40 @@ def build_resolution_table(fmin, global_offsets, Ustart, ends) -> np.ndarray:
     return np.stack([g, fe], axis=1).astype(np.int32)
 
 
-def replica_tables(index, device="cuda") -> dict:
-    """The replica engine's device tables of one FinimizerIndex: rank24
-    rows (tab, n8), C, contract_k (ck), the LCS jump arrays (jl, jr), the
-    SU|Ustart table (suu), ends, the unitig-end rank table (uend_tab),
-    the resolution rows (res_tab) and the forward edges (edge, augmented
-    when aug)."""
+def two_phase_tables(index, device="cuda", aug: bool = False) -> dict:
+    """ops.streaming.make_two_phase's device tables of one FinimizerIndex,
+    the stream and replica engines' both: rank24 rows (tab, n8), C,
+    contract_k (ck), the LCS jumps (jl, jr), the forward edges (edge,
+    augmented when aug), k and n_nodes."""
     k = index.sbwt.get_k()
-    n_nodes = index.sbwt.number_of_subsets()
     bit_rows = index.sbwt.bit_rows()
     C = index.sbwt.get_C_array()
-    ck_np = build_contract_k_table(index.LCS, k)
+    ck = build_contract_k_table(index.LCS, k)
     jl, jr = build_lcs_jump_tables(index.LCS)
-    ustart = np.asarray(index.Ustart, np.uint8)
-    aug = can_augment_edges(n_nodes, k)
-    edge = (build_edge_aug_table(bit_rows, C, ck_np, index.LCS, ustart) if aug
-            else build_edge_table(bit_rows, C, ck_np))
+    edge = (build_edge_aug_table(bit_rows, C, ck, index.LCS, np.asarray(index.Ustart, np.uint8))
+            if aug else build_edge_table(bit_rows, C, ck))
     tab = build_rank24_tables(bit_rows)
+    arrays = {"tab": tab, "C": C, "ck": ck, "jl": jl, "jr": jr, "edge": edge}
+    P = {name: put_i32(a, device) for name, a in arrays.items()}
+    P.update(n8=tab.shape[0] // 4, k=k, n_nodes=index.sbwt.number_of_subsets(), aug=aug)
+    return P
+
+
+def replica_tables(index, device="cuda") -> dict:
+    """The replica engine's device tables: two_phase_tables (edges
+    augmented when the index allows), the SU|Ustart table (suu), ends,
+    the unitig-end rank table (uend_tab), the resolution rows (res_tab)."""
+    P = two_phase_tables(index, device,
+                         can_augment_edges(index.sbwt.number_of_subsets(), index.sbwt.get_k()))
+    ustart = np.asarray(index.Ustart, np.uint8)
     arrays = {
-        "tab": tab, "C": C, "ck": ck_np, "jl": jl, "jr": jr,
         "suu": build_su_ustart_table(index.LCS, ustart),
         "ends": index.unitigs.ends,
         "uend_tab": build_uend_table(index.unitigs.ends),
         "res_tab": build_resolution_table(np.asarray(index.fmin, np.uint8),
                                           index.global_offsets, ustart, index.unitigs.ends),
-        "edge": edge,
     }
-    P = {name: put_i32(a, device) for name, a in arrays.items()}
-    P.update(n8=tab.shape[0] // 4, k=k, n_nodes=n_nodes, aug=aug)
+    P.update((name, put_i32(a, device)) for name, a in arrays.items())
     return P
 
 
@@ -240,25 +240,16 @@ def make_replica_locate_v2(index, K_seg: int = 4096, chunk: int | None = None,
     k-1-overlapped chunks scanned as extra lanes (chunk_reads); the
     output is the same."""
     P = replica_tables(index, device) if tables is None else tables
-    k, n8, n_nodes, aug = P["k"], P["n8"], P["n_nodes"], P["aug"]
-    chain = make_chain_opt(n8, k, n_nodes, aug=aug)
-    repair = make_segment_repair(n8, k, n_nodes, K_seg, aug=aug)
+    k = P["k"]
+    two_phase = make_two_phase(P["n8"], k, P["n_nodes"], K_seg, aug=P["aug"])
 
     def locate(codes):
         if isinstance(codes, np.ndarray):
             codes = torch.from_numpy(codes).to(P["tab"].device)
         B, L = codes.shape
         cc_len = auto_chunk(k, B, L) if chunk is None else chunk
-        tab, C, edge = P["tab"], P["C"], P["edge"]
-        if k <= cc_len < L:
-            emit, cand, untrusted = (
-                unchunk_grid(g, B, L, k, cc_len)
-                for g in chain(tab, C, edge, chunk_reads(codes, k, cc_len))
-            )
-        else:
-            emit, cand, untrusted = chain(tab, C, edge, codes)
-        emit, cand, n_seg = repair(tab, C, P["ck"], P["jl"], P["jr"], P["suu"], codes,
-                                   emit, cand, untrusted)
+        emit, cand, n_seg = two_phase(P["tab"], P["C"], P["ck"], P["jl"], P["jr"], P["suu"],
+                                      P["edge"], codes, cc_len)
         with trace.span("replica_tail"):
             uid, off = resolve_windows(P, emit, cand, cc_len)
         return uid, off, n_seg

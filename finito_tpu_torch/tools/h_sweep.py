@@ -8,8 +8,8 @@ comes from a sweep on another chip. A smaller h raises the load factor
 descriptor the gathers touch. For each h this re-addresses the cached
 minimizer index (MinimizerIndex.rebucket), uploads it
 (DeviceMinimizerIndex), settles the v1 and/or v2 locate's capacities
-(initial_capacities, grow_capacities) and times it. Every h must give
-the first h's answers, or the sweep raises.
+(query.locators' Optimistic and minimizer_policy) and times it. Every h
+must give the first h's answers, or the sweep raises.
 
   python -m finito_tpu_torch.tools.build_cache --genome 16000000
   python -m finito_tpu_torch.tools.h_sweep [--genome 16000000] [--hs 22,23,24,25,26]
@@ -53,12 +53,11 @@ def main(argv=None) -> int:
     dev = device(args.device)
 
     from finito_tpu_torch.index.minimizer import MinimizerIndex
+    from finito_tpu_torch.query.locators import Optimistic, minimizer_policy
     from finito_tpu_torch.query.minimizer_engine import (
         DeviceMinimizerIndex,
-        make_minimizer_locate,
-        make_minimizer_locate_v2,
+        make_minimizer_locate_form,
     )
-    from finito_tpu_torch.query.minimizer_tables import grow_capacities, initial_capacities
 
     tag = cache_tag(args.genome, args.k)
     genome = np.load(os.path.join(args.cache_dir, f"genome_{tag}.npy"))
@@ -94,18 +93,14 @@ def main(argv=None) -> int:
             slot_mb = (dmi.slot_rows.numel() * 4) >> 20 if dmi.slot_rows is not None else 0
             for eng in args.engines.split(","):
                 use_v2 = eng == "v2"
-                K, KH = initial_capacities(B * W, use_v2)
-                K = max(K, int(args.slow_frac * B * W))
-                while True:
-                    f = (make_minimizer_locate_v2(dmi, K, KH) if use_v2
-                         else make_minimizer_locate(dmi, K))
-                    out = f(reads_dev)
-                    n_slow = int(out[2])
-                    n_heads = int(out[3]) if use_v2 else 0
-                    grown = grow_capacities(K, KH, n_slow, n_heads, B * W)
-                    if grown is None:
-                        break
-                    K, KH = grown
+                (K, KH), grow = minimizer_policy(B, L, k, use_v2)
+                check = Optimistic(
+                    lambda caps: make_minimizer_locate_form(dmi, use_v2, *caps)(reads_dev),
+                    (max(K, int(args.slow_frac * B * W)), KH), grow)
+                check.verify()
+                (K, KH), n_slow, out = check.caps, check.counters[0], check.out
+                del check  # the first run's outputs, when it was re-run
+                f = make_minimizer_locate_form(dmi, use_v2, K, KH)
                 answer = (out[0].cpu().numpy(), out[1].cpu().numpy())
                 if first is None:
                     first = (h, eng, answer)

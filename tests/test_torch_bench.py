@@ -71,12 +71,13 @@ def test_run_rung_v2_forced_equals_jax(monkeypatch):
     capacity for B = 32, W = 34 (the port's v2 factory is seen to run).
     Every field but the times equal."""
     from finito_tpu.query import minimizer_engine as jme
-    from finito_tpu_torch.query import engine as port_engine
+    from finito_tpu_torch.query import locators
+    from finito_tpu_torch.query import minimizer_engine as port_mini
 
-    monkeypatch.setattr(port_engine, "V2_MIN_DESC_BYTES", 0)
+    monkeypatch.setattr(port_mini, "V2_MIN_DESC_BYTES", 0)
     built = []
-    v2_factory = port_engine.make_minimizer_locate_v2
-    monkeypatch.setattr(port_engine, "make_minimizer_locate_v2",
+    v2_factory = locators.make_minimizer_locate_v2
+    monkeypatch.setattr(locators, "make_minimizer_locate_v2",
                         lambda *a: built.append(a[2]) or v2_factory(*a))
     monkeypatch.setattr(jme, "make_minimizer_locate", lambda dmi, K: jme.make_minimizer_locate_v2(
         dmi, K, max(1024, int(32 * 34 * (2.8 / (31 - dmi.m + 2))))))

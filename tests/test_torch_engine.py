@@ -1,7 +1,8 @@
 """The port's DeviceQueryEngine (finito_tpu_torch/query/engine.py) on the
 CPU against the JAX engine's merged_pairs_flat and the host oracle
 FinimizerIndex.search, in both locate forms; the v1/v2 rule, the
-deferred-verify re-run, the RLE overflow fallback and the minimizer
+forced capacity re-run of every checked mode and the capacity loop
+itself (query.locators.Optimistic), the RLE overflow fallback and the minimizer
 index cache. The port's engine takes the port's own FinimizerIndex, read
 by its loader from the files the JAX package writes. Every comparison is
 exact."""
@@ -20,7 +21,10 @@ from finito_tpu.query.engine import DeviceQueryEngine as JaxEngine
 from finito_tpu_torch.index.index import FinimizerIndex as PortFinimizerIndex
 from finito_tpu_torch.index.minimizer import MinimizerIndex
 from finito_tpu_torch.query import engine as port_engine
+from finito_tpu_torch.query import minimizer_engine as port_mini
 from finito_tpu_torch.query.engine import DeviceQueryEngine, merge_rle
+from finito_tpu_torch.query.locators import Optimistic, minimizer_policy, segment_policy
+from finito_tpu_torch.utils import trace
 
 # plain module name: pytest puts tests/ on sys.path, and a `tests` package
 # installed elsewhere cannot shadow it
@@ -130,22 +134,6 @@ def test_locate_batch_async_and_reads_arrays_equal_jax(fixture, monkeypatch, k0)
                 np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_deferred_verify_overflow_rerun(fixture, monkeypatch):
-    """A forced tiny slow-path capacity (FINITO_MIN_K0) must be caught by
-    the deferred verify in _end and re-run to the exact answer."""
-    index, _, _, k, jindex = fixture
-    engine = DeviceQueryEngine(index, device="cpu")
-    rng = np.random.default_rng(31)
-    reads = ["".join(rng.choice(list("ACGT"), 30)).encode() for _ in range(12)]
-    monkeypatch.setenv("FINITO_MIN_K0", "1")
-    h = engine.merged_pairs_flat_begin(reads)
-    forced = engine.merged_pairs_flat_end(h)
-    monkeypatch.delenv("FINITO_MIN_K0")
-    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
-    for a, b in zip(forced, want):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_rle_overflow_falls_back_to_host_merge(fixture):
     """Runs past the RLE capacity: _end takes the full-window host merge,
     with the same streams as the RLE path."""
@@ -166,7 +154,7 @@ def test_v2_switch_constant_equals_jax(fixture):
     """The JAX engine switches to v2 at the slot-row cap's descriptor
     size; the port's rule uses the same number, and the small fixture
     runs v1 unless forced."""
-    assert port_engine.V2_MIN_DESC_BYTES == jme._SLOT_ROWS_MAX_DESC_BYTES == 64 << 20
+    assert port_mini.V2_MIN_DESC_BYTES == jme._SLOT_ROWS_MAX_DESC_BYTES == 64 << 20
     assert fixture[1].use_v2 is False
 
 
@@ -184,26 +172,6 @@ def test_forced_v2_equals_jax_and_oracle(fixture, monkeypatch):
     for read, (f, r) in zip(reads, engine.process_reads(reads)):
         assert f.local_offsets == jindex.search(read).local_offsets, read
         assert r.local_offsets == jindex.search(reverse_complement(read)).local_offsets, read
-
-
-def test_forced_v2_head_overflow_rerun(fixture, monkeypatch):
-    """FINITO_MIN_K0 under v2 sets K_slow = 1 and K_heads = 4, below the
-    batch's head count: the deferred verify grows both and re-runs to
-    the exact answer, and the memo keeps the grown (K, KH) per (B, W)."""
-    index, _, reads, _, jindex = fixture
-    monkeypatch.setenv("FINITO_MINIMIZER_V2", "1")
-    engine = DeviceQueryEngine(index, device="cpu")
-    monkeypatch.setenv("FINITO_MIN_K0", "1")
-    h = engine.merged_pairs_flat_begin(reads)
-    rest = h[1]
-    assert rest[6]() is not None  # verify re-ran: the first dispatch overflowed
-    forced = engine.merged_pairs_flat_end(engine.merged_pairs_flat_begin(reads))
-    (B, W), (K, KH) = next(iter(engine._sizes.items()))
-    assert KH > 4 and B * W >= KH
-    monkeypatch.delenv("FINITO_MIN_K0")
-    want = JaxEngine(jindex, mode="minimizer").merged_pairs_flat(reads)
-    for a, b in zip(forced, want):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_mindex_cache_fresh_reused_stale(fixture, tmp_path, monkeypatch):
@@ -256,7 +224,8 @@ NEW_MODES = ["dense", "stream", "replica"]
 def jax_merged(fixture):
     """mode -> the JAX engine's merged_pairs_flat of the fixture's reads"""
     _, _, reads, _, jindex = fixture
-    return {mode: JaxEngine(jindex, mode=mode).merged_pairs_flat(reads) for mode in NEW_MODES}
+    return {mode: JaxEngine(jindex, mode=mode).merged_pairs_flat(reads)
+            for mode in ("minimizer", *NEW_MODES)}
 
 
 def _assert_same_streams(got, want):
@@ -321,20 +290,90 @@ def test_new_modes_wide_rank_form(fixture, jax_merged, monkeypatch, mode):
     _assert_same_streams(engine.merged_pairs_flat(reads), jax_merged[mode])
 
 
-@pytest.mark.parametrize("mode", ["stream", "replica"])
-def test_new_modes_capacity_rerun(fixture, jax_merged, monkeypatch, mode):
-    """FINITO_MIN_K0=1 makes the first segment capacity 1: the deferred
-    verify re-runs at 4x K until n_seg fits and gives the exact answer;
-    the memo keeps the grown K per (B, L)."""
-    index, _, reads, _, _ = fixture
-    engine = DeviceQueryEngine(index, mode=mode, device="cpu")
+FORCED = ["v1", "v2", "stream", "replica", "mesh"]
+
+
+@pytest.mark.parametrize("key", FORCED)
+def test_forced_capacity_rerun(fixture, jax_merged, monkeypatch, tmp_path, key):
+    """FINITO_MIN_K0=1 makes the first capacity of every dispatch 1, memo
+    or not: in each of two calls the deferred verify re-runs
+    (capacity_reruns, more than one verify read a call) and the memo
+    keeps the grown capacities; the output equals the unforced run's
+    and the JAX engine's. The minimizer locate in v1 and v2 (whose
+    K_heads starts at 4, below the batch's head count) on the index
+    re-addressed to 2^8 slots, whose crowded slots send windows down the
+    slow path (m = k here, so no minimizer repeats), stream, replica,
+    and v1 over a (1, 2) CPU mesh."""
+    index, _, reads, k, _ = fixture
+    cache = None
+    if key in ("v1", "v2"):
+        monkeypatch.setenv("FINITO_MINIMIZER_V2", str(int(key == "v2")))
+        cache = str(tmp_path / "mindex")
+        MinimizerIndex.from_finimizer_index(index).rebucket(8).serialize(cache)
+    engine = DeviceQueryEngine(index, mode=key if key in ("stream", "replica") else "minimizer",
+                               device="cpu", mesh=(1, 2) if key == "mesh" else None,
+                               mindex_cache=cache)
+    want = engine.merged_pairs_flat(reads)
+    _assert_same_streams(want, jax_merged[engine.mode])
+    trace.reset()
     monkeypatch.setenv("FINITO_MIN_K0", "1")
-    assert engine.merged_pairs_flat_begin(reads)[1][6]() is not None  # verify re-ran
-    got = engine.merged_pairs_flat(reads)
+    got = [engine.merged_pairs_flat(reads) for _ in range(2)]
     monkeypatch.delenv("FINITO_MIN_K0")
-    (_B, _L), K = next(iter(engine._sizes.items()))
-    assert K >= 4
-    _assert_same_streams(got, jax_merged[mode])
+    assert trace.counts["capacity_reruns"] == trace.counts["chunks"] == 2
+    assert trace.counts["host_reads.verify"] > 2
+    ((B, L), caps), = engine.locator.sizes.items()
+    assert 4 <= caps[0] <= B * L
+    if key == "v2":
+        assert 4 < caps[1] <= B * (L - k + 1)
+    for g in got:
+        _assert_same_streams(g, want)
+
+
+@pytest.mark.parametrize("need", ["under", "at", "over"])
+@pytest.mark.parametrize("policy", ["v1", "v2", "stream", "replica"])
+def test_capacity_loop_against_its_ceiling(monkeypatch, policy, need):
+    """query.locators' capacity loop over a fake locate whose counters need n
+    slow windows (and 20,000 heads in v2): under the ceiling it grows
+    (x4; heads doubled or to the count) until they fit, at the ceiling
+    it stops there, over it verify raises. The run that stood answers,
+    and the memo starts the shape's next dispatch there, with no
+    re-run."""
+    monkeypatch.delenv("FINITO_MIN_K0", raising=False)
+    B, L, k = 64, 1030, 31
+    BW = B * (L - k + 1)
+    if policy in ("v1", "v2"):
+        first, grow = minimizer_policy(B, L, k, policy == "v2")
+        ceiling = BW
+    else:
+        first, grow = segment_policy(B, L, k, stream=policy == "stream")
+        ceiling = BW if policy == "stream" else B * L
+    n = {"under": 3 * first[0], "at": ceiling, "over": ceiling + 1}[need]
+    runs = []
+
+    def run(caps):
+        runs.append(caps)
+        counters = torch.tensor(n, dtype=torch.int32)
+        if policy == "v2":
+            counters = (counters, torch.tensor(20_000, dtype=torch.int32))
+        return torch.tensor([caps[0]]), torch.tensor([len(runs)]), counters
+
+    sizes = {}
+    check = Optimistic(run, first, grow, sizes=sizes, key=(B, L))
+    if need == "over":
+        with pytest.raises(AssertionError, match="overflow at K =="):
+            check.verify()
+        assert runs[-1][0] == ceiling
+        return
+    uid, off = check.verify()
+    K = check.caps[0]
+    assert n <= K <= ceiling and K // 4 < n and runs[-1] == check.caps == sizes[(B, L)]
+    assert (int(uid), int(off)) == (K, len(runs)) and check.counters[0] == n
+    assert K == (ceiling if need == "at" else 4 * first[0])
+    if policy == "v2":
+        assert check.caps[1] == max(2 * first[1], 20_000)
+    n_runs = len(runs)
+    again = Optimistic(run, first, grow, sizes=sizes, key=(B, L))
+    assert again.verify() is None and again.caps == check.caps and len(runs) == n_runs + 1
 
 
 @pytest.mark.parametrize("mode", ["stream", "replica"])

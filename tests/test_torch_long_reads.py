@@ -78,18 +78,18 @@ def _serve(index, reads, tmp, engine=None):
     counts, reads per chunk, dispatched (B, L) shapes)."""
     per_chunk, shapes = [], []
     if engine is not None:
-        begin, locate = engine.merged_pairs_flat_begin, engine._locate_async
+        begin, dispatch = engine.merged_pairs_flat_begin, engine.locator.dispatch
 
         def merged_pairs_flat_begin(chunk):
             per_chunk.append(len(chunk))
             return begin(chunk)
 
-        def locate_async(codes):
+        def counted_dispatch(codes):
             shapes.append(tuple(codes.shape))
-            return locate(codes)
+            return dispatch(codes)
 
         engine.merged_pairs_flat_begin = merged_pairs_flat_begin
-        engine._locate_async = locate_async
+        engine.locator.dispatch = counted_dispatch
     out = io.TextIOWrapper(io.BytesIO(), encoding="ascii")
     stats = os.path.join(tmp, "q.stats")
     if os.path.exists(stats):

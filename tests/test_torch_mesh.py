@@ -27,7 +27,8 @@ from finito_tpu_torch.ops.bitvec import DeviceSBWT
 from finito_tpu_torch.ops.lcs_device import lcs_array_device
 from finito_tpu_torch.parallel import mesh as pmesh
 from finito_tpu_torch.query import minimizer_engine as tme
-from finito_tpu_torch.query.engine import DeviceQueryEngine, build_position_table
+from finito_tpu_torch.query.engine import DeviceQueryEngine
+from finito_tpu_torch.query.locators import build_position_table
 from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
 from finito_tpu_torch.sbwt.lcs import lcs_array
 
@@ -326,7 +327,7 @@ def test_mesh_engine_equals_single_and_jax(setup):
     reads = [genome[s : s + 30].encode() for s in rng.integers(0, len(genome) - 30, 13)]
     reads += [b"ACG", b"ACGTNACGTACG"]
     eng = DeviceQueryEngine(index, mesh=(4, 2), device="cpu")
-    assert eng.mesh.devices.shape == (4, 2) and eng.device == torch.device("cpu")
+    assert eng.locator.mesh.devices.shape == (4, 2) and eng.device == torch.device("cpu")
     got = eng.merged_pairs_flat(reads)
     for want in (DeviceQueryEngine(index, device="cpu").merged_pairs_flat(reads),
                  JaxEngine(jindex, mode="minimizer", mesh=(4, 2)).merged_pairs_flat(reads)):
@@ -334,7 +335,7 @@ def test_mesh_engine_equals_single_and_jax(setup):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     # explicit devices win; one device per shard of a (2, 2) grid
     eng2 = DeviceQueryEngine(index, mesh=(2, 2), devices=["cpu"] * 4)
-    assert eng2.mesh.devices.shape == (2, 2)
+    assert eng2.locator.mesh.devices.shape == (2, 2)
     for a, b in zip(eng2.merged_pairs_flat(reads), got):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     # a (1, 1) mesh is the single-device engine

@@ -24,7 +24,7 @@ from finito_tpu.io.seqdb import encode_seq
 from finito_tpu.query import minimizer_engine as jme
 from finito_tpu.query.engine import DeviceQueryEngine as JaxEngine
 from finito_tpu_torch.index.index import FinimizerIndex as PortIndex
-from finito_tpu_torch.query import engine as port_engine
+from finito_tpu_torch.query import minimizer_engine as port_mini
 from finito_tpu_torch.query.engine import DeviceQueryEngine
 
 # plain module names: pytest puts tests/ on sys.path, and a `tests` package
@@ -121,7 +121,7 @@ def test_pipeline_equals_jax(cell, mode):
 def _force_v2(monkeypatch):
     """The pipeline picks v2 by descriptor size alone (FINITO_MINIMIZER_V2
     is not its variable, as it is not JAX's): a zero threshold forces it."""
-    monkeypatch.setattr(port_engine, "V2_MIN_DESC_BYTES", 0)
+    monkeypatch.setattr(port_mini, "V2_MIN_DESC_BYTES", 0)
 
 
 @pytest.mark.parametrize("v2", ["0", "1"])

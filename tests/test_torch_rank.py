@@ -19,7 +19,7 @@ from finito_tpu_torch.index.index import FinimizerIndex as PortFinimizerIndex
 from finito_tpu_torch.ops import bitvec as pbv
 from finito_tpu_torch.ops import rank24 as pr24
 from finito_tpu_torch.ops.bits import put_i32
-from finito_tpu_torch.query import engine as peng
+from finito_tpu_torch.query import locators as peng
 
 # plain module name: pytest puts tests/ on sys.path, and a `tests` package
 # installed elsewhere cannot shadow it

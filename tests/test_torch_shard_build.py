@@ -266,7 +266,7 @@ def test_sharded_index_build_feeds_sharded_locate(mesh_built, tp):
     from finito_tpu.parallel.mesh import ShardedIndex as JaxShardedIndex
     from finito_tpu_torch.io.seqdb import decode_seq, encode_seq
     from finito_tpu_torch.ops.bitvec import DeviceSBWT
-    from finito_tpu_torch.query.engine import build_position_table
+    from finito_tpu_torch.query.locators import build_position_table
 
     spss, index, jindex = mesh_built
     assert index.mesh_pos is not None

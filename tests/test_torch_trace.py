@@ -2,8 +2,9 @@
 with a device engine, on the CPU): the same bytes with a torch profiler
 recording and without one; the tally's spans and counters with no
 profiler; the program's ranges, and an untouched tally, under one; the
-device-to-host reads a chunk of each engine; capacity re-runs and host
-merges counted where they happen; a fresh tally at each call."""
+device-to-host reads a chunk of each engine; host merges counted where
+they happen (capacity re-runs: test_torch_engine's
+test_forced_capacity_rerun); a fresh tally at each call."""
 
 from __future__ import annotations
 
@@ -199,16 +200,6 @@ def test_card_path_counts_repair_kernel(served, cell, tmp_path, key):
         assert not any(n.startswith("trips.") for n in counts)
         assert "segment_repair" in ms and not {"segment_repair.fixed",
                                                "segment_repair.straggler"} & set(ms)
-
-
-@pytest.mark.parametrize("key", ["v2", "stream"])
-def test_capacity_reruns_counted_every_chunk_under_min_k0(cell, tmp_path, monkeypatch, key):
-    index, _, records = cell
-    engine = _engine(index, key)
-    monkeypatch.setenv("FINITO_MIN_K0", "1")
-    _, _, counts, _ = _serve(engine, index, records, str(tmp_path))
-    assert counts["capacity_reruns"] == counts["chunks"] == 2
-    assert counts["host_reads.verify"] > counts["chunks"]
 
 
 def test_host_merges_on_long_noisy_reads(cell, tmp_path):

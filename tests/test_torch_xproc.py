@@ -308,7 +308,7 @@ def runs(tmp_path_factory):
     from finito_tpu_torch.ops.bitvec import DeviceSBWT
     from finito_tpu_torch.parallel import mesh as pm
     from finito_tpu_torch.parallel import shard_build as sb
-    from finito_tpu_torch.query.engine import build_position_table
+    from finito_tpu_torch.query.locators import build_position_table
 
     out = tmp_path_factory.mktemp("xproc")
     procs = launch_workers(out)
