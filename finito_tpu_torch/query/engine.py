@@ -97,6 +97,19 @@ def merge_rle(uid: torch.Tensor, off: torch.Tensor, lens: torch.Tensor, K: int):
     return u0, p0, p1, rl, stats
 
 
+def rle_capacity(rows: int, Wp: int, windows: int) -> int:
+    """merge_rle's run capacity K for a chunk of rows padded reads, Wp
+    window slots a row and windows windows on one strand; at most
+    rows * Wp, the most runs there can be. A chunk with more runs falls
+    back to the full-window host merge."""
+    # 16 runs a read for short reads; one run per 64 windows for long
+    # accurate reads (HiFi has ~234 windows a run)
+    by_reads, by_windows, cap = max(4096, 16 * rows), -(-windows // 64), rows * Wp
+    if by_windows > by_reads:  # never past cap: windows <= rows * Wp
+        trace.count("rle_window_sized")
+    return min(cap, max(by_reads, by_windows))
+
+
 def padded_shape(B: int, L: int, min_rows: int = 1) -> Tuple[int, int]:
     """The shape bucket of a (B, L) batch: L up to a multiple of 128 (at
     least 128), B up to a power of two and at least min_rows (a mesh's
@@ -311,7 +324,7 @@ class DeviceQueryEngine:
             lens_pad = np.zeros(B2 // 2, np.int32)
             lens_pad[: len(batch_codes)] = lens
             lens_d = self._to_device(lens_pad)
-            K = int(min((B2 // 2) * Wp, max(4096, 16 * (B2 // 2))))
+            K = rle_capacity(B2 // 2, Wp, int(lens.sum()))
             out = merge_rle(uid_d, off_d, lens_d, K)
         return (line_lens, (batch_codes, lens, uid_d, off_d, K, out, verify, lens_d, chunk))
 

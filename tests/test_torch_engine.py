@@ -150,6 +150,26 @@ def test_rle_overflow_falls_back_to_host_merge(fixture):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("rows,Wp,windows,want,window_sized", [
+    (4096, 226, 4096 * 120, 65_536, False),    # reads150: 16 a read, as before
+    (512, 994, 512 * 970, 16 * 512, False),    # 1 kbp noisy reads: 7,760 by windows
+    (512, 994, 512 * 770, 16 * 512, False),    # 800 bp noisy reads
+    (64, 994, 40 * 770, 4096, False),          # the tiny long cell's 40 reads
+    (256, 25_058, 3_450_000, 53_907, True),    # a HiFi chunk: ceil(windows / 64)
+    (1, 98, 98, 98, False),                    # the cap clips the floor
+    (4, 98, 300, 4 * 98, False),
+])
+def test_rle_capacity(rows, Wp, windows, want, window_sized):
+    """merge_rle's run capacity: 16 runs a read (at least 4,096) for short
+    reads, one run per 64 windows once that is more, never past rows * Wp;
+    rle_window_sized counts the chunks where the window term set it."""
+    trace.reset()
+    assert port_engine.rle_capacity(rows, Wp, windows) == want
+    assert trace.counts.get("rle_window_sized", 0) == window_sized
+    if not window_sized:
+        assert want == min(rows * Wp, max(4096, 16 * rows))
+
+
 def test_v2_switch_constant_equals_jax(fixture):
     """The JAX engine switches to v2 at the slot-row cap's descriptor
     size; the port's rule uses the same number, and the small fixture

@@ -5,7 +5,8 @@ over the budget goes alone, and the output stays byte-equal to the CLI's
 host path and to the benchmark's plain reference, for the v1 and v2
 locates, a forced capacity re-run included; the four counters of the rule
 (window_slots, windows, chunks_by_budget, host_merge_windows) against the
-test's own arithmetic."""
+test's own arithmetic; accurate long reads, whose merge_rle run capacity
+comes from their windows, merged on the device and not by the host."""
 
 from __future__ import annotations
 
@@ -14,12 +15,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from benchmark import datagen
 from benchmark.reference import Reference, line
 from finito_tpu_torch import cli
 from finito_tpu_torch.index.builder import FinimizerIndexBuilder
 from finito_tpu_torch.io.seqdb import SeqDB
+from finito_tpu_torch.query import engine as engine_mod
 from finito_tpu_torch.query.engine import DeviceQueryEngine
 from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
 from finito_tpu_torch.sbwt.lcs import lcs_array
@@ -34,6 +37,10 @@ LONG = {"pool": 24, "length": {"lognormal_median": 4000, "sigma": 0.3, "min": 20
 # 512 reads of 1 kbp at 2.5% substitutions: ~23 runs a read, where one chunk's
 # merge_rle holds 16 a read (8,192)
 NOISY = {"pool": 512, "length": {"fixed": 1000}, "rc_frac": 0.5, "sub_rate": 0.025, "n_frac": 0.0}
+# 256 reads of ~4 kbp at 0.5% substitutions: ~40 runs a read, past 16 a read
+# but under one per 64 windows
+ACCURATE = {"pool": 256, "length": {"lognormal_median": 4000, "sigma": 0.1, "min": 3500, "max": 4500},
+            "rc_frac": 0.5, "sub_rate": 0.005, "n_frac": 0.0}
 SHORT = {"pool": 4096, "length": {"fixed": 150}, "rc_frac": 0.5, "sub_rate": 0.005, "n_frac": 0.01}
 
 
@@ -61,11 +68,11 @@ def cell():
     return index, Reference(genome, cuts, K, "cpu"), genome, reads
 
 
-def _engine(index, v2: str):
+def _engine(index, v2: str, device: str = "cpu"):
     old = os.environ.get("FINITO_MINIMIZER_V2")
     os.environ["FINITO_MINIMIZER_V2"] = v2
     try:
-        return DeviceQueryEngine(index, mode="minimizer", device="cpu")
+        return DeviceQueryEngine(index, mode="minimizer", device=device)
     finally:
         if old is None:
             os.environ.pop("FINITO_MINIMIZER_V2", None)
@@ -211,6 +218,45 @@ def test_many_runs_take_the_host_merge_counted_by_windows(cell, tmp_path):
     assert counts["window_slots"] == n_slots == 1024 * 994
 
 
+@pytest.fixture(scope="module")
+def accurate(cell, tmp_path_factory):
+    """The accurate long reads, and their output and stats text by the
+    full-window host merge, which the run capacity of 16 a read sends
+    them to, equal to the reference's."""
+    index, ref, genome, _ = cell
+    reads = _ascii(*datagen.gen_reads(np.random.default_rng([SEED, 4]), genome, ACCURATE))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine_mod, "rle_capacity", lambda rows, Wp, windows: max(4096, 16 * rows))
+        out, stats, counts, _, _ = _serve(index, reads, str(tmp_path_factory.mktemp("accurate")),
+                                          _engine(index, "0"))
+    assert counts["host_merges"] == 1 and (out, stats) == _reference(ref, reads)
+    return reads, (out, stats)
+
+
+@pytest.mark.parametrize("device,v2", [
+    ("cpu", "0"), ("cpu", "1"),
+    pytest.param("cuda", "0", marks=pytest.mark.cuda),
+    pytest.param("cuda", "1", marks=pytest.mark.cuda),
+])
+def test_accurate_long_reads_merge_on_the_device(cell, accurate, tmp_path, device, v2):
+    """256 reads of ~4 kbp at 0.5% substitutions in one chunk under the
+    default budget: more runs than 16 a read, so the run capacity comes
+    from the windows, and merge_rle serves every window without the host
+    merge, byte-equal to the host merge and to the reference."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    reads, host = accurate
+    out, stats, counts, per_chunk, shapes = _serve(cell[0], reads, str(tmp_path),
+                                                   _engine(cell[0], v2, device))
+    assert (out, stats) == host
+    rows = shapes[0][0] // 2
+    assert per_chunk == [256] and rows == 256
+    assert "host_merges" not in counts and "host_merge_windows" not in counts
+    assert counts["rle_window_sized"] == len(per_chunk)
+    # the old rule's capacity, 16 a read, would have overflowed
+    assert counts["runs"] > 16 * rows
+
+
 def test_short_reads_keep_one_full_dispatch(cell, tmp_path):
     """4,096 reads of 150 bp under the default budget: one chunk, one
     (8192, 256) dispatch, nothing closed by the budget."""
@@ -222,6 +268,7 @@ def test_short_reads_keep_one_full_dispatch(cell, tmp_path):
     kept = sum(map(_kept, reads))
     assert 4000 < kept < 4096
     assert counts["windows"] == 2 * 120 * kept and counts["window_slots"] == 8192 * 226
+    assert "rle_window_sized" not in counts and "host_merges" not in counts
     assert (out, stats) == _reference(ref, reads)
 
 
