@@ -65,15 +65,16 @@ def read_metric(bench_dir: str, name: str, run):
     return mod.read(run)
 
 
-def build_index(genome, cuts, k: int, prefix: str) -> None:
-    """The port's host index build, as `build-fmin` runs it on the .sbwt
-    of the same unitigs, serialized under prefix."""
+def build_index(codes, ends, k: int, prefix: str) -> None:
+    """The port's host index build of a unitig set (flat codes, exclusive
+    ends), as `build-fmin` runs it on the .sbwt of the same unitigs,
+    serialized under prefix."""
     from finito_tpu_torch.index.builder import FinimizerIndexBuilder
     from finito_tpu_torch.io.seqdb import SeqDB
     from finito_tpu_torch.sbwt.construct import build_plain_matrix_sbwt
     from finito_tpu_torch.sbwt.lcs import lcs_array
 
-    unitigs = datagen.unitig_bytes(genome, cuts, k)
+    unitigs = datagen.unitig_bytes(codes, ends)
     sbwt, keys = build_plain_matrix_sbwt(unitigs, k, return_keys=True)
     index = FinimizerIndexBuilder(sbwt, lcs_array(sbwt), SeqDB.from_sequences(unitigs),
                                   node_keys=keys).get_index()
@@ -207,8 +208,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
                          f"--type {cfg['finimizer_type']}; the benchmark builds t=1 rarest only")
     work = tempfile.mkdtemp(prefix="finito-bench-")
     try:
-        genome, cuts = datagen.gen_dspss(np.random.default_rng([seed, 0]),
-                                         int(cfg["genome_len"]), k, int(cfg["mean_unitig"]))
+        genome, unitigs = datagen.genome_and_unitigs(seed, cfg)
         codes, ends = datagen.gen_reads(np.random.default_rng([seed, 1]), genome, traffic)
         # the warm-up file holds the pool's first reads, one chunk's worth
         warm, pool = os.path.join(work, "warm.fq"), os.path.join(work, "pool.fq")
@@ -219,7 +219,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         t0 = time.perf_counter()
         if reference_engine is not None:
             index = _KOnly(k)
-            engine = ReferenceEngine(Reference(genome, cuts, k, device), **reference_engine)
+            engine = ReferenceEngine(Reference.of_unitigs(*unitigs, k, device), **reference_engine)
         else:
             from finito_tpu_torch import native
             from finito_tpu_torch.index.index import FinimizerIndex
@@ -228,7 +228,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             if native.get_lib() is None:
                 raise RuntimeError("the program's native library did not load: "
                                    "format_pairs would take the Python formatter")
-            build_index(genome, cuts, k, os.path.join(work, "idx"))
+            build_index(*unitigs, k, os.path.join(work, "idx"))
             t0 = time.perf_counter()
             index = FinimizerIndex.load(os.path.join(work, "idx"))
             engine = DeviceQueryEngine(index, mode=cfg["engine"], device=device)
@@ -281,7 +281,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
             locate_shapes=rec.locate_shapes, counters=rec.counters, engine_stats=stats)
         # the comparison, after the window and with the program's state freed
         t_ref = time.perf_counter()
-        ref_out = Reference(genome, cuts, k, device).answer(codes, ends)
+        ref_out = Reference.of_unitigs(*unitigs, k, device).answer(codes, ends)
         n_served = int(sum(rec.n_reads))
         rng = np.random.default_rng([seed, 2])
         n_sample = min(int(traffic["check_sample"]), n_served)

@@ -1,14 +1,16 @@
 """The plain reference of `search-fmin`'s served output, in plain PyTorch
 on whatever device it is given. It imports nothing of the program and
-reads nothing the program made: it starts from the generated genome and
-unitig cuts, and from the read pool.
+reads nothing the program made: it starts from the generated unitig set
+(flat codes and their ends, benchmark/datagen.py) and from the read pool.
 
 The rules it follows are Finito's own (github.com/ElenaBiagi/Finito):
 
   * unitig ids: unitigs are numbered in colexicographic order of their
     first k-mer (include/PackedStrings.hh, permute_unitigs);
   * a window's answer: the (unitig, offset) of the one unitig window that
-    spells it (a DSPSS holds each k-mer once), else (-1,-1);
+    spells it (a DSPSS holds each k-mer once), else (-1,-1); with
+    canonical unitigs a k-mer stored reverse-complemented is found by the
+    strand merge below;
   * the strand merge (include/search_fmin.hh:62-71): window w of a read
     takes its forward hit, else the hit of window n-1-w of the read's
     reverse complement, which spells the reverse complement of window w;
@@ -27,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from benchmark.datagen import cut_unitigs
+
 
 def _pack(codes: torch.Tensor, k: int, reverse_complement: bool) -> torch.Tensor:
     """int64 key of every k-window of a flat 0..3 code tensor: the window
@@ -42,10 +46,12 @@ def _pack(codes: torch.Tensor, k: int, reverse_complement: bool) -> torch.Tensor
     return key
 
 
-def unitig_ids(genome: np.ndarray, cuts: np.ndarray, k: int) -> np.ndarray:
-    """Index id of each generated unitig: its rank in colex order of the
-    unitigs' first k-mers (the last base compares first)."""
-    first = genome[cuts[:-1, None] + np.arange(k)[None, :]].astype(np.uint64)
+def unitig_ids(codes: np.ndarray, ends: np.ndarray, k: int) -> np.ndarray:
+    """Index id of each unitig of a set (flat codes, exclusive ends): its
+    rank in colex order of the unitigs' first k-mers (the last base
+    compares first)."""
+    starts = np.concatenate([[0], np.asarray(ends, np.int64)[:-1]])
+    first = codes[starts[:, None] + np.arange(k)[None, :]].astype(np.uint64)
     key = np.zeros(first.shape[0], np.uint64)
     for j in range(k - 1, -1, -1):
         key = (key << np.uint64(2)) | first[:, j]
@@ -55,19 +61,38 @@ def unitig_ids(genome: np.ndarray, cuts: np.ndarray, k: int) -> np.ndarray:
 
 
 class Reference:
-    """Every genome k-mer's (unitig id, offset), sorted by key."""
+    """Every unitig window's (unitig id, offset), sorted by key."""
 
     def __init__(self, genome: np.ndarray, cuts: np.ndarray, k: int, device):
+        """The reference of genome cut into unitigs at cuts (datagen.draw_cuts);
+        Reference.of_unitigs takes any unitig set."""
+        self._index(*cut_unitigs(genome, cuts, k), k, device)
+
+    @classmethod
+    def of_unitigs(cls, codes: np.ndarray, ends: np.ndarray, k: int, device) -> "Reference":
+        """The reference of a unitig set: flat 0..3 codes and each unitig's
+        exclusive end. A k-mer in two windows raises: the set is no DSPSS."""
+        ref = cls.__new__(cls)
+        ref._index(codes, ends, k, device)
+        return ref
+
+    def _index(self, codes: np.ndarray, ends: np.ndarray, k: int, device) -> None:
         self.k, self.device = k, torch.device(device)
-        g = torch.from_numpy(np.ascontiguousarray(genome)).to(self.device)
-        keys = _pack(g, k, False)
+        ends = np.asarray(ends, np.int64)
+        c = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
+        keys = _pack(c, k, False)
         pos = torch.arange(keys.numel(), dtype=torch.int64, device=self.device)
-        cuts_d = torch.from_numpy(np.asarray(cuts, np.int64)).to(self.device)
-        unitig = torch.searchsorted(cuts_d, pos, right=True) - 1
-        ids = torch.from_numpy(unitig_ids(genome, cuts, k)).to(self.device)
+        ends_d = torch.from_numpy(ends).to(self.device)
+        unitig = torch.searchsorted(ends_d, pos, right=True)
+        inside = pos + k <= ends_d[unitig]  # the windows that cross no unitig's end
+        keys, pos, unitig = keys[inside], pos[inside], unitig[inside]
+        starts_d = torch.cat([ends_d.new_zeros(1), ends_d[:-1]])
+        ids = torch.from_numpy(unitig_ids(codes, ends, k)).to(self.device)
         self.keys, order = torch.sort(keys)
+        if bool((self.keys[1:] == self.keys[:-1]).any()):
+            raise ValueError("a k-mer lies in two unitig windows: the unitig set is no DSPSS")
         self.uid = ids[unitig][order].to(torch.int32)
-        self.off = (pos - cuts_d[unitig])[order].to(torch.int32)
+        self.off = (pos - starts_d[unitig])[order].to(torch.int32)
 
     def lookup(self, keys: torch.Tensor):
         i = torch.searchsorted(self.keys, keys).clamp(max=self.keys.numel() - 1)

@@ -12,6 +12,12 @@ ROOT = os.path.dirname(BENCH_DIR)
 
 TINY_GENOME = {"name": "tiny", "genome_len": 20000, "k": 31, "t": 1,
                "finimizer_type": "rarest", "mean_unitig": 2000, "engine": "minimizer"}
+# a repeat-dense genome decomposed into canonical de Bruijn unitigs: the
+# repeat ladder's generator parameters, long enough for segmental duplications
+TINY_REPEAT = {"name": "tiny_repeat", "genome_len": 80000, "k": 31, "t": 1,
+               "finimizer_type": "rarest", "engine": "minimizer", "genome": "repeat",
+               "repeat": {"tandem_frac": 0.2, "seg_frac": 0.35, "snp_rate": 0.004,
+                          "div_rate": 0.04}}
 TINY_READS = {"pool": 300, "length": {"fixed": 150}, "rc_frac": 0.5, "sub_rate": 0.005,
               "n_frac": 0.05, "warmup_reads": 64, "check_sample": 100,
               "trace": {"from": 0.75, "chunks": 1}}
@@ -50,7 +56,7 @@ def read(run):
 
 def make_bench(root: str, engines=("minimizer", "stream")) -> str:
     """Write the tiny cells under root; returns the BENCHMARK.json path.
-    Cells: tiny_<engine>.reads and tiny_minimizer.long."""
+    Cells: tiny_<engine>.reads, tiny_minimizer.long and tiny_repeat.reads."""
     bdir = os.path.join(root, "benchmark")
     shutil.copytree(os.path.join(BENCH_DIR, "metrics"), os.path.join(bdir, "metrics"))
     for name, (text, _, _) in EXTRA_METRICS.items():
@@ -71,6 +77,13 @@ def make_bench(root: str, engines=("minimizer", "stream")) -> str:
                                    "chips": 1, "why": "test"})
     bench["workloads"].append({"name": "tiny_minimizer.long", "config": "tiny_minimizer",
                                "traffic": "tinylong", "chips": 1, "why": "test"})
+    with open(os.path.join(bdir, "configs", "tiny_repeat.json"), "w") as f:
+        json.dump(TINY_REPEAT, f)
+    bench["configs"].append({"name": "tiny_repeat", "source": "test",
+                             "file": "benchmark/configs/tiny_repeat.json",
+                             "reduced": ["genome_len"], "why": "test"})
+    bench["workloads"].append({"name": "tiny_repeat.reads", "config": "tiny_repeat",
+                               "traffic": "tinyreads", "chips": 1, "why": "test"})
     for name, spec in (("tinyreads", TINY_READS), ("tinylong", TINY_LONG)):
         with open(os.path.join(bdir, "traffic", name + ".json"), "w") as f:
             json.dump(spec, f)

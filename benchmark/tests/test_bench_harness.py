@@ -103,13 +103,14 @@ def test_reference_covers_both_strands_and_n(bench):
     k-mers on both strands, and N reads give empty lines."""
     path, bdir = bench
     spec = harness.load_cell("tiny_minimizer.reads", path, bdir)
-    genome, cuts = datagen.gen_dspss(np.random.default_rng([SEED, 0]), 20000, 31)
+    genome, unitigs = datagen.genome_and_unitigs(SEED, spec.config)
     codes, ends = datagen.gen_reads(np.random.default_rng([SEED, 1]), genome, spec.traffic)
-    W, found, nbytes, u, p, first = Reference(genome, cuts, 31, "cpu").answer(codes, ends)
+    ref = Reference.of_unitigs(*unitigs, 31, "cpu")
+    W, found, nbytes, u, p, first = ref.answer(codes, ends)
     starts = np.concatenate([[0], ends[:-1]])
     has_n = np.array([np.any(codes[a:b] > 3) for a, b in zip(starts, ends)])
     assert has_n.any() and np.all(W[has_n] == 0) and np.all(nbytes[has_n] == 1)
-    fwd_only = Reference(genome, cuts, 31, "cpu").answer(codes, ends, rc=False)[1]
+    fwd_only = ref.answer(codes, ends, rc=False)[1]
     assert found.sum() > 1.5 * fwd_only.sum() > 0
 
 
@@ -119,14 +120,16 @@ def test_unitig_ids_follow_the_ports_index(tmp_path):
     from finito_tpu_torch.index.index import FinimizerIndex
 
     genome, cuts = datagen.gen_dspss(np.random.default_rng(5), 30000, 31)
-    harness.build_index(genome, cuts, 31, str(tmp_path / "idx"))
+    codes, ends = datagen.cut_unitigs(genome, cuts, 31)
+    harness.build_index(codes, ends, 31, str(tmp_path / "idx"))
     index = FinimizerIndex.load(str(tmp_path / "idx"))
-    ids = unitig_ids(genome, cuts, 31)
-    ends = np.asarray(index.unitigs.ends)
-    starts = np.concatenate([[0], ends[:-1]])
+    ids = unitig_ids(codes, ends, 31)
+    index_ends = np.asarray(index.unitigs.ends)
+    index_starts = np.concatenate([[0], index_ends[:-1]])
     for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
         j = ids[i]
-        assert np.array_equal(index.unitigs.concat[starts[j] : ends[j]], genome[a : b + 30])
+        assert np.array_equal(index.unitigs.concat[index_starts[j] : index_ends[j]],
+                              genome[a : b + 30])
 
 
 @pytest.mark.parametrize("variant,fails", [
