@@ -36,22 +36,24 @@ from finito_tpu_torch.utils import trace
 
 class Optimistic:
     """run(caps) dispatches at the capacity tuple caps and returns (uid,
-    off, counters, ...), counters one () device tensor or a tuple of
-    them; grow(caps, counters) takes them as host ints and returns None
-    when caps sufficed, else the next capacities, or raises at the
-    ceiling. The dispatch runs at construction, at sizes[key] when an
-    earlier verify settled the key, else at `first`. FINITO_MIN_K0=k0 > 0
-    (tests) makes every dispatch start at k0 (further capacities at
-    max(k0, 4)) and drops the key's memo.
+    off, counters, ...), counters one () device tensor or a tuple of ()
+    and (n,) ones; grow(caps, counters) takes them as host ints, an (n,)
+    one as its sum, and returns None when caps sufficed, else the next
+    capacities, or raises at the ceiling. The dispatch runs at
+    construction, at sizes[key] when an earlier verify settled the key,
+    else at `first`. FINITO_MIN_K0=k0 > 0 (tests) makes every dispatch
+    start at k0 (further capacities at max(k0, 4)) and drops the key's
+    memo.
 
     verify() reads the counters in one host read (utils.trace site
-    `verify`) and re-runs while grow asks; then it counts the final
-    counters under the trace names `counted`, keeps the capacities in
-    sizes[key], and returns None when the first output stands, else the
-    exact (uid, off). caps, out and counters are then the final run's."""
+    `verify`) and re-runs while grow asks; then it hands the final
+    counters to count (utils.trace counters, so a discarded run counts
+    nothing), keeps the capacities in sizes[key], and returns None when
+    the first output stands, else the exact (uid, off). caps, out and
+    counters are then the final run's."""
 
-    def __init__(self, run, first, grow, counted=(), sizes=None, key=None):
-        self.run, self.grow, self.counted, self.key = run, grow, counted, key
+    def __init__(self, run, first, grow, count=None, sizes=None, key=None):
+        self.run, self.grow, self.count, self.key = run, grow, count, key
         self.sizes = {} if sizes is None else sizes
         caps = self.sizes.get(key) or first
         k0 = int(os.environ.get("FINITO_MIN_K0", "0"))
@@ -64,23 +66,31 @@ class Optimistic:
     def verify(self):
         while True:
             c = self.out[2]
-            self.counters = trace.host_read(
-                "verify", lambda: torch.stack(c).tolist() if isinstance(c, tuple) else [int(c)])
+            self.counters = trace.host_read("verify", lambda: _host_ints(c))
             grown = self.grow(self.caps, self.counters)
             if grown is None:
                 break
             self.caps = grown
             self.out = self.run(grown)
-        for name, n in zip(self.counted, self.counters):
-            trace.count(name, n)
+        if self.count is not None:
+            self.count(self.counters)
         self.sizes[self.key] = self.caps
         return None if self.out is self.first else (self.out[0], self.out[1])
+
+
+def _host_ints(counters) -> list:
+    """Counters as host ints, in one read: a () tensor as it is, an (n,)
+    one as its sum."""
+    if not isinstance(counters, tuple):
+        return [int(counters)]
+    return torch.stack([x.sum() if x.dim() else x for x in counters]).tolist()
 
 
 def minimizer_policy(B: int, L: int, k: int, v2: bool, slow_divisor: int | None = None):
     """(first, grow) of a minimizer locate on a (B, L) batch: (K_slow,
     K_heads) by initial_capacities, grown by grow_capacities from the
-    counters (n_slow,) (v1, the mesh) or (n_slow, n_heads) (v2)."""
+    counters' n_slow (v1, the mesh) or n_slow and n_heads (v2), the
+    first ones."""
     BW = B * (L - k + 1)
 
     def grow(caps, counters):
@@ -193,18 +203,19 @@ def load_minimizer_index(index: FinimizerIndex, cache: str | None) -> MinimizerI
 
 class _Locator:
     """dispatch at capacities: locate_at(caps) (make(caps), kept per
-    caps), policy(B, L) -> (first, grow), the trace names `counted` of
-    the final counters, sizes the memo. v2: the minimizer form (None in
-    the other modes); min_rows: a dispatch's least rows (a mesh's dp)."""
+    caps), policy(B, L) -> (first, grow), count(counters) the trace
+    counters of the final counters (None: none), sizes the memo. v2: the
+    minimizer form (None in the other modes); min_rows: a dispatch's
+    least rows (a mesh's dp)."""
 
     v2 = None
     min_rows = 1
-    counted = ()
+    count = None
 
     def dispatch(self, codes: torch.Tensor):
         B, L = codes.shape
         check = Optimistic(lambda caps: self.locate_at(caps)(codes), *self.policy(B, L),
-                           self.counted, self.sizes, (B, L))
+                           self.count, self.sizes, (B, L))
         return check.out[0], check.out[1], check.verify
 
     def locate_at(self, caps):
@@ -222,8 +233,20 @@ class MinimizerLocator(_Locator):
         self.device, self.k, self.sizes = device, index.sbwt.get_k(), {}
         self.dmi = DeviceMinimizerIndex(load_minimizer_index(index, mindex_cache), device)
         self.v2 = pick_v2(self.dmi)
-        self.counted = ("slow_runs", "heads") if self.v2 else ()
         self.policy = partial(minimizer_policy, k=self.k, v2=self.v2)
+
+    def count(self, counters):
+        """make_minimizer_locate_form's counters, read: v2's slow runs and
+        heads; in both forms the slow path's work, `slow_occ` (the sum of
+        s_len: v2 scans each slot whole, v1's lanes stop at their first
+        hit, so there it bounds the occurrences scanned from above) and
+        `slow_lane_trips` (its slow windows or runs x its trips)."""
+        n_slow, trips, occ = counters[0], counters[-2], counters[-1]
+        if self.v2:
+            trace.count("slow_runs", n_slow)
+            trace.count("heads", counters[1])
+        trace.count("slow_occ", occ)
+        trace.count("slow_lane_trips", n_slow * trips)
 
     def locate_at(self, caps):
         return make_minimizer_locate_form(self.dmi, self.v2, *caps)
@@ -270,7 +293,9 @@ class SegmentLocator(_Locator):
     two_phase_tables (stream) or replica_tables. chunk: the chain scan's
     chunk length (None = auto_chunk, 0 = whole reads)."""
 
-    counted = ("segments",)
+    @staticmethod
+    def count(counters):
+        trace.count("segments", counters[0])
 
     def __init__(self, index: FinimizerIndex, device, replica: bool, chunk: int | None = None):
         self.device, self.k = device, index.sbwt.get_k()

@@ -208,13 +208,19 @@ def _check_candidate(dmi: DeviceMinimizerIndex, idx, o, q_words, masks):
 
 
 def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
-                          count_occurrences: bool = False):
+                          count_occurrences: bool = False, work: bool = False):
     """Returns locate: (B, L) uint8 codes on dmi.device -> ((B, W) int32
     uid, off, n_slow () int32 tensor). Results are valid only when
     n_slow <= K_slow; the caller re-runs with a larger bound otherwise
     (the deferred-verify contract of query.engine).
 
-    With count_occurrences a fourth output, (B, W) int32 cnt, is the
+    With work, the slow path's work follows n_slow: longest, the () max
+    slot length, which is the trip count the locate reads, and s_len,
+    the (K_slow,) slot length of each lane (0 on an empty lane); a lane
+    scans it to its end only with count_occurrences, else up to its
+    first hit.
+
+    With count_occurrences a last output, (B, W) int32 cnt, is the
     exact number of text occurrences of each window's k-mer (all
     occurrences of a k-mer share its minimizer, hence its slot): the
     candidate scan then runs to the slot end instead of stopping at the
@@ -270,7 +276,8 @@ def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
         off_s = torch.full_like(uid_s, -1)
         cnt_s = torch.zeros_like(uid_s)
         # the one host read of the locate: the scan's trip count
-        trips = trace.host_read("locate.trips", lambda: int(s_len.max()))
+        longest = s_len.max()
+        trips = trace.host_read("locate.trips", lambda: int(longest))
         trace.count("trips.slow", trips)
         for t in range(trips):
             i = s_start + t
@@ -290,12 +297,13 @@ def make_minimizer_locate(dmi: DeviceMinimizerIndex, K_slow: int,
         scat = torch.where(valid, flat_idx, BW).to(torch.int64)
         uid = _scatter_drop(uid.reshape(-1), scat, uid_s).reshape(best_v.shape)
         off = _scatter_drop(off.reshape(-1), scat, off_s).reshape(best_v.shape)
+        out = (uid, off, n_slow) + ((longest, s_len) if work else ())
         if not count_occurrences:
-            return uid, off, n_slow
+            return out
         # exact: a one-occurrence slot holds the k-mer's only possible
         # occurrence (equal values share a slot)
         cnt = _scatter_drop(found.to(torch.int32).reshape(-1), scat, cnt_s)
-        return uid, off, n_slow, cnt.reshape(best_v.shape)
+        return (*out, cnt.reshape(best_v.shape))
 
     return locate
 
@@ -341,7 +349,7 @@ def _span_mismatches(text, g0, span_read, masks):
 
 
 def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: int,
-                             count_occurrences: bool = False):
+                             count_occurrences: bool = False, work: bool = False):
     """Run-deduplicated locate, the counterpart of the JAX
     make_minimizer_locate_v2: the big-table gathers and the text
     verification run once per minimizer RUN, not once per window.
@@ -363,9 +371,11 @@ def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: in
          span; a Python loop bounded by one host read of the largest
          slot length;
       7. the scatter of run results to their windows.
-    Returns (uid, off, n_slow, n_heads[, cnt]); results are valid only
-    when n_slow <= K_slow and n_heads <= K_heads. Runs on both index
-    branches (it reads only the descriptor rows, never slot_rows)."""
+    Returns (uid, off, n_slow, n_heads[, longest, s_len][, cnt]), the
+    slow path's work (longest, s_len) with work, over runs (see
+    make_minimizer_locate); results are valid only when n_slow <= K_slow
+    and n_heads <= K_heads. Runs on both index branches (it reads only
+    the descriptor rows, never slot_rows)."""
     k = dmi.k
     R_run = k - dmi.m + 1  # most windows sharing one minimizer
     NW_SPAN = (2 * (k + R_run - 1) + 31) // 32 + 1
@@ -479,7 +489,8 @@ def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: in
             # past a window's first hit leaves uid/off at that hit and is what
             # cnt needs, so the full trip count gives the JAX loop's answer
             # in both modes, though JAX stops early when not counting.
-            trips = trace.host_read("locate.trips", lambda: int(s_len.max()))
+            longest = s_len.max()
+            trips = trace.host_read("locate.trips", lambda: int(longest))
             trace.count("trips.slow", trips)
             for t in range(trips):
                 i = s_start + t
@@ -503,10 +514,11 @@ def make_minimizer_locate_v2(dmi: DeviceMinimizerIndex, K_slow: int, K_heads: in
             sink = torch.where(live & ~bad_t, f_t, BW).reshape(-1)
             uid = _scatter_drop(uid, sink, uid_s.reshape(-1)).reshape(B, W)
             off = _scatter_drop(off, sink, off_s.reshape(-1)).reshape(B, W)
+            out = (uid, off, n_slow, n_heads) + ((longest, s_len) if work else ())
             if not count_occurrences:
-                return uid, off, n_slow, n_heads
+                return out
             cnt = _scatter_drop(found.to(torch.int32), sink, cnt_s.reshape(-1))
-            return uid, off, n_slow, n_heads, cnt.reshape(B, W)
+            return (*out, cnt.reshape(B, W))
 
     return locate
 
@@ -529,15 +541,18 @@ def pick_v2(dmi: DeviceMinimizerIndex) -> bool:
 def make_minimizer_locate_form(dmi: DeviceMinimizerIndex, v2: bool, K_slow: int, K_heads: int,
                                count_occurrences: bool = False):
     """The v2 or v1 locate (v1 takes no K_heads) with one return shape:
-    locate(codes) -> (uid, off, counters[, cnt]), counters v1's n_slow or
-    v2's (n_slow, n_heads), as query.locators.Optimistic reads them."""
-    if not v2:
-        return make_minimizer_locate(dmi, K_slow, count_occurrences)
-    locate = make_minimizer_locate_v2(dmi, K_slow, K_heads, count_occurrences)
+    locate(codes) -> (uid, off, counters[, cnt]), counters v1's (n_slow,
+    longest, s_len) or v2's (n_slow, n_heads, longest, s_len), as
+    query.locators.Optimistic reads them: longest and s_len are the slow
+    path's work (make_minimizer_locate)."""
+    if v2:
+        locate, n = make_minimizer_locate_v2(dmi, K_slow, K_heads, count_occurrences, True), 4
+    else:
+        locate, n = make_minimizer_locate(dmi, K_slow, count_occurrences, True), 3
 
     def run(codes):
         out = locate(codes)
-        return (out[0], out[1], out[2:4], *out[4:])
+        return (out[0], out[1], out[2 : 2 + n], *out[2 + n :])
 
     return run
 
